@@ -1,0 +1,87 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs a CUDA card (marker ``cuda``) and skips without one.
+The file imports neither jax nor the JAX package, so it also runs on a
+machine without them:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from triplet_match_tpu_torch import config as cfg
+from triplet_match_tpu_torch.core.cloud import PointCloud
+from triplet_match_tpu_torch.index.model import compile_model
+from triplet_match_tpu_torch.io.synthetic import embed_in_scene, make_box_model, sym_delta
+from triplet_match_tpu_torch.search import driver
+from triplet_match_tpu_torch.search import score_kernel as sk
+
+SAMPLE = cfg.SampleParams(min_diameter_factor=0.3, max_diameter_factor=0.95)
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the coarse_rank kernel has no CPU mode")
+    dev = torch.device("cuda", 0)
+    xyz, nrm, tan = make_box_model(n_edge=120, n_face=360, size=(1.0, 0.8, 0.6), seed=0)
+    model = compile_model(PointCloud.from_arrays(xyz, nrm, tan, device=dev),
+                          cfg.DiscretizationParams(), SAMPLE, cfg.SearchPolicy(), pair_block=128)
+    scene, t_gt, _ = embed_in_scene(xyz, nrm, tan, noise=0.001, n_clutter=200, seed=7,
+                                    device=dev)
+    return dev, model, scene, t_gt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,stride,strict_primary", [("coarse", 8, False), ("fine", 4, True)])
+def test_coarse_kernel_matches_plain(card, block, stride, strict_primary):
+    dev, model, scene, t_gt = card
+    pack = sk.pack_model(model, coarse_points=256, fine_points=512)
+    prep = driver.prepare_scene(scene, cfg.SearchPolicy())
+    rng = np.random.default_rng(3)
+    g, hg, k = 8, 64, 256
+    nbr_idx = torch.from_numpy(rng.integers(0, scene.capacity, (g, k))).to(dev)
+    nbr_ok = torch.from_numpy(rng.random((g, k)) > 0.1).to(dev)
+    groups = sk.pack_groups(prep.cloud, prep.tangent_mask,
+                            torch.zeros(scene.capacity, dtype=torch.bool, device=dev),
+                            nbr_idx, nbr_ok)[:, :, ::stride].contiguous()
+    ts = np.tile(np.linalg.inv(t_gt).astype(np.float32), (g, hg, 1, 1))
+    ts[:, : hg // 2, :3, 3] += rng.normal(0, 0.01, (g, hg // 2, 3)).astype(np.float32)
+    ts[:, hg // 2:, :3, 3] += rng.normal(0, 0.3, (g, hg - hg // 2, 3)).astype(np.float32)
+    rows = sk.poses_to_rows(torch.from_numpy(ts).to(dev))
+    rows[..., 9:12] -= pack.center
+    md = pack.md_coarse if block == "coarse" else pack.md_fine
+    thres = np.float32(3.0) * np.float32(float(model.resolution))
+    t2 = float(thres * thres)
+    t2c = sk._inflate(t2, pack.coarse_slack if block == "coarse" else pack.fine_slack)
+    frac = sk._f32(1.0 / (groups.shape[2] + 1))
+    w = (frac, 1.0) if strict_primary else (1.0, frac)
+
+    before = sk.COARSE_RANK.launches
+    got = sk._coarse_launch(groups, rows, md, t2c, pack.kind_off, t2, *w)
+    torch.cuda.synchronize()
+    assert sk.COARSE_RANK.launches == before + 1
+    ref = sk.score_groups_coarse_plain(groups, rows, md, t2c, pack.kind_off, t2, *w)
+    sk.check_coarse_parity(got, ref, groups, rows, md, t2c, pack.kind_off, t2, strict_primary)
+    assert (got[:, : hg // 2].mean(1) > got[:, hg // 2:].mean(1)).all()
+    with pytest.raises(ValueError):
+        sk._coarse_launch(groups.double(), rows, md, t2c, pack.kind_off, t2, *w)
+    with pytest.raises(ValueError):
+        sk._coarse_launch(groups.cpu(), rows, md, t2c, pack.kind_off, t2, *w)
+
+
+@pytest.mark.cuda
+def test_find_all_on_card_launches_the_kernel(card):
+    dev, model, scene, t_gt = card
+    policy = dataclasses.replace(cfg.SearchPolicy(), num_first_samples=16, num_second_samples=8,
+                                 query_cap=8, score_neighbors=256, finalists=2, max_rounds=2)
+    matches = driver.find_all(model, scene, dist_thres=3.0, model_match_factor=0.5,
+                              sample_params=SAMPLE, policy=policy, max_icp_iterations=5, seed=13)
+    assert matches
+    dt, dr = sym_delta(matches[0].transform, t_gt)
+    assert dt < 6e-3 and dr < 0.6
+    assert driver.LAST_SEARCH_STATS["coarse_kernel_launches"] > 0

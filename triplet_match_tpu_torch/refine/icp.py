@@ -1,0 +1,119 @@
+"""Batched correspondence ICP (counterpart of ``triplet_match_tpu.refine.icp``;
+``scene::icp_``, impl/scene.hpp:369-404).
+
+Poses refine together along a leading batch dim: each pose runs the
+reference's loop — score at the relaxed gate (2 x dist_thres), Kabsch fit of
+the correspondences, rescore, iterate while the count does not shrink — and
+stops on its own; a finished pose keeps its state while the others go on.
+
+Only the point-to-point path is ported.  Point-to-plane, the edge-only fit and
+the floor-gated point-to-line steps belong to the fog route and raise.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from triplet_match_tpu_torch.core.transforms import weighted_kabsch
+from triplet_match_tpu_torch.index.model import CompiledModel
+from triplet_match_tpu_torch.search.score import DenseCorrs, finish_find
+
+_FOG_ROUTE = ("point-to-plane, edges_only and point_to_line_at_floor belong to the fog "
+              "route, which is not ported yet (ROADMAP queue A)")
+
+
+class IcpResult(NamedTuple):
+    transform: torch.Tensor  # [F, 4, 4] scene -> model
+    corrs: DenseCorrs
+    iterations: torch.Tensor  # [F] int64
+
+
+def _select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - mask.dim())), a, b)
+
+
+def icp_refine(model: CompiledModel, scene, tangent_mask, consumed, t0: torch.Tensor,
+               dist_thres, max_iterations: int, tight_iterations: int = 2,
+               weighted_distance: bool = False, negative_scores: bool = False,
+               point_to_plane: bool = False, samples_on_all: bool = True) -> IcpResult:
+    """Refine poses ``t0`` [F, 4, 4].
+
+    After the relaxed loop, ``tight_iterations`` extra Kabsch steps run at the
+    unrelaxed gate (``tight_polish``) and the correspondences are re-derived
+    at the relaxed gate.
+    """
+    if point_to_plane:
+        raise NotImplementedError(_FOG_ROUTE)
+    relaxed = 2.0 * dist_thres
+
+    def _ff(t, thres):
+        return finish_find(model, scene, tangent_mask, consumed, t, thres,
+                           weighted_distance=weighted_distance,
+                           negative_scores=negative_scores, samples_on_all=samples_on_all)
+
+    f = t0.shape[0]
+    if max_iterations == 0:
+        # impl/scene.hpp:371: the match returns untouched, corrs at the unrelaxed gate
+        return IcpResult(t0, _ff(t0, dist_thres), torch.zeros(f, dtype=torch.int64, device=t0.device))
+
+    t_best, corrs = t0, _ff(t0, relaxed)
+    it = torch.zeros(f, dtype=torch.int64, device=t0.device)
+    done = corrs.count < 3  # impl/scene.hpp:381
+    for _ in range(max_iterations):
+        active = ~done & (it < max_iterations)
+        if not bool(active.any()):
+            break
+        t_new = weighted_kabsch(scene.xyz, model.cloud.xyz[corrs.model_idx],
+                                corrs.valid.to(torch.float32))
+        proj = _ff(t_new, relaxed)
+        improved = proj.count >= corrs.count  # a strict shrink stops (impl/scene.hpp:396)
+        take = active & improved
+        t_best = _select(take, t_new, t_best)
+        corrs = DenseCorrs(*(_select(take, a, b) for a, b in zip(proj, corrs)))
+        it = it + active.to(torch.int64)
+        done = done | (active & ~improved)
+
+    if tight_iterations > 0:
+        t_best = tight_polish(model, scene, tangent_mask, consumed, t_best, dist_thres,
+                              tight_iterations, weighted_distance=weighted_distance,
+                              negative_scores=negative_scores, samples_on_all=samples_on_all)
+        corrs = _ff(t_best, relaxed)
+    return IcpResult(t_best, corrs, it)
+
+
+def tight_polish(model: CompiledModel, scene, tangent_mask, consumed, t0: torch.Tensor,
+                 dist_thres, iterations: int = 2, weighted_distance: bool = False,
+                 negative_scores: bool = False, point_to_plane: bool = False,
+                 samples_on_all: bool = True, orientation_weight: bool = False,
+                 anneal: float = 1.0, edges_only: bool = False,
+                 point_to_line_at_floor: bool = False) -> torch.Tensor:
+    """Kabsch steps at the unrelaxed gate with exact (LUT-seeded) corrs.
+
+    Step i runs at dist_thres * max(anneal**i, 1/16); ``orientation_weight``
+    weights each corr by |scene_dir . model_dir| (impl/scene.hpp:430).  A
+    step with fewer than 3 corrs keeps the pose.  Changes only the reported
+    transform, never which matches are accepted.  t0 [F, 4, 4] -> [F, 4, 4].
+    """
+    if point_to_plane or edges_only or point_to_line_at_floor:
+        raise NotImplementedError(_FOG_ROUTE)
+    t = t0
+    for i in range(iterations):
+        factor = max(float(torch.tensor(anneal, dtype=torch.float32) ** i), 1.0 / 16.0)
+        thres = float(torch.tensor(dist_thres, dtype=torch.float32) * factor)
+        corrs = finish_find(model, scene, tangent_mask, consumed, t, thres, exact=True,
+                            weighted_distance=weighted_distance,
+                            negative_scores=negative_scores, samples_on_all=samples_on_all)
+        w = corrs.valid.to(torch.float32)
+        if orientation_weight:
+            midx = corrs.model_idx
+            ref = torch.where(tangent_mask[:, None], scene.tangent, scene.normal)
+            tref = ref @ t[..., :3, :3].transpose(-1, -2)
+            mtan = model.cloud.tangent[midx]
+            is_tan = torch.linalg.vector_norm(mtan, dim=-1) > 0.7
+            ref_n = torch.where(is_tan[..., None], mtan, model.cloud.normal[midx])
+            w = w * (tref * ref_n).sum(-1).abs()
+        t_new = weighted_kabsch(scene.xyz, model.cloud.xyz[corrs.model_idx], w)
+        t = _select(corrs.count >= 3, t_new, t)
+    return t

@@ -1,0 +1,555 @@
+"""Multi-instance search driver (counterpart of ``triplet_match_tpu.search.driver``).
+
+Mirrors the control flow of impl/scene.hpp:39-240:
+
+  prepare scene (curvature -> edge mask)                 impl/scene.hpp:41-58
+  WHILE matches found:                                   impl/scene.hpp:70-95
+    sample first/second pairs, query model,              impl/scene.hpp:242-353
+    pose hypotheses (base_transform) + force_up gate,    impl/scene.hpp:315-319
+    rank hypotheses (two-phase coarse kernel),           impl/scene.hpp:326
+    promote finalists -> ICP,                            impl/scene.hpp:361-366,171
+    sort by corr count, greedy non-overlap acceptance,   impl/scene.hpp:193-237
+    mask accepted scene points.                          impl/scene.hpp:87-93
+
+Each round scores a whole hypothesis batch ([B1, B2, Q] poses) at once; the
+only sequential state is the mask update between rounds.  The port covers the
+standard-density configuration: when the fog-density switch would fire, and
+for the multi-device meshes, ``find_all`` raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from triplet_match_tpu_torch.config import (
+    DEFAULT_DISCRETIZATION,
+    DEFAULT_POLICY,
+    DEFAULT_SAMPLE_PARAMS,
+    DiscretizationParams,
+    SampleParams,
+    SearchPolicy,
+)
+from triplet_match_tpu_torch.core import cloud as cl
+from triplet_match_tpu_torch.core.transforms import base_transform, invert_rigid, strict_fp32
+from triplet_match_tpu_torch.features import pairfeat as pf
+from triplet_match_tpu_torch.index.model import CompiledModel, query_pairs
+from triplet_match_tpu_torch.ops.curvature import (
+    curvature_from_neighbors,
+    curvature_ratio,
+    edge_mask as edge_mask_op,
+    principal_curvatures,
+)
+from triplet_match_tpu_torch.ops.knn import radius_sample
+from triplet_match_tpu_torch.refine.icp import icp_refine, tight_polish
+from triplet_match_tpu_torch.search import score_kernel as sk
+from triplet_match_tpu_torch.search.sampling import (
+    RoundDraws,
+    draw_round,
+    hash_uniform,
+    sample_firsts,
+    sample_seconds,
+)
+from triplet_match_tpu_torch.search.score import finish_find, normalize_score
+
+_FOG_ROUTE = "is part of the fog route, which is not ported yet (ROADMAP queue A)"
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenePrep:
+    """Per-scene preprocessing (impl/scene.hpp:41-58)."""
+
+    cloud: cl.PointCloud
+    tangent_mask: torch.Tensor  # [N] bool — edge points
+    n_edge: torch.Tensor
+
+
+def _prepare_scene_whole(cloud: cl.PointCloud, policy: SearchPolicy) -> ScenePrep:
+    cloud = cl.finite_filter(cloud)
+    curv = principal_curvatures(cloud, k=policy.curvature_k)
+    tm = edge_mask_op(cloud, curv, tangent_norm_threshold=policy.tangent_norm_threshold,
+                      curvature_ratio_threshold=policy.curvature_ratio_threshold)
+    return ScenePrep(cloud=cloud, tangent_mask=tm, n_edge=tm.sum())
+
+
+def _prepare_scene_grid(cloud: cl.PointCloud, *, policy: SearchPolicy, chunk: int = 4096,
+                        cap: int = 64) -> ScenePrep:
+    """Grid-bucketed edge classification for large scenes.
+
+    Curvature is evaluated only for tangent-bearing points (the edge mask is
+    ``tnorm > 0.7 AND ratio < 0.2``, impl/scene.hpp:50), with neighbours from
+    a 27-cell grid stencil sized for that population.
+    """
+    from triplet_match_tpu_torch.ops import gridnn
+
+    cloud = cl.finite_filter(cloud)
+    tb = cloud.valid & (torch.linalg.vector_norm(cloud.tangent, dim=-1)
+                        > policy.tangent_norm_threshold)
+    qidx = torch.nonzero(tb)[:, 0]
+    tm = torch.zeros_like(tb)
+    if qidx.numel():
+        cell = gridnn.estimate_knn_radius(cloud.xyz, cloud.valid, policy.curvature_k, focus=tb)
+        grid = gridnn.build_grid(cloud.xyz, cloud.valid, cell)
+        ratios = []
+        for s in range(0, qidx.numel(), chunk):
+            q = qidx[s:s + chunk]
+            idx, mask = gridnn.grid_neighbors(grid, cloud.xyz, cloud.xyz[q],
+                                              policy.curvature_k, cap=cap)
+            c = curvature_from_neighbors(cloud.normal[q], cloud.normal[idx], mask)
+            ratios.append(curvature_ratio(c))
+        tm[qidx] = torch.cat(ratios) < policy.curvature_ratio_threshold
+    tm = tm & cloud.valid
+    return ScenePrep(cloud=cloud, tangent_mask=tm, n_edge=tm.sum())
+
+
+def prepare_scene(cloud: cl.PointCloud, policy: SearchPolicy = DEFAULT_POLICY, *,
+                  grid_threshold: int = 32768, mesh=None) -> ScenePrep:
+    """Per-scene preprocessing (impl/scene.hpp:41-58) on the cloud's device.
+
+    Scenes above ``grid_threshold`` points take the grid-bucketed pass,
+    smaller ones the brute-force pass over the whole cloud.
+    """
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded scene preparation (parallel/) is not ported "
+                                  "yet (ROADMAP queue A)")
+    if cloud.capacity <= grid_threshold:
+        return _prepare_scene_whole(cloud, policy)
+    return _prepare_scene_grid(cloud, policy=policy)
+
+
+class RoundResult(NamedTuple):
+    transform: torch.Tensor  # [F, 4, 4] scene -> model (pre-inversion)
+    accept: torch.Tensor  # [F] bool
+    new_corr: torch.Tensor  # [F, N] bool — newly claimed scene corrs
+    model_idx: torch.Tensor  # [F, N] int64
+    count: torch.Tensor  # [F] int64 total corrs from ICP finish_find
+    score: torch.Tensor  # [F] float32 signed score (unnormalized)
+    hypotheses_scored: torch.Tensor  # 0-d int64
+
+
+def _rank_on_all(policy) -> bool:
+    """Effective ``samples_on_all`` for the ranking surfaces."""
+    return policy.samples_on_all and not bool(policy.rank_edges_only)
+
+
+def _f32(x) -> np.float32:
+    return np.float32(float(x))
+
+
+def hypothesize_and_score(model: CompiledModel, prep: ScenePrep, consumed: torch.Tensor,
+                          fp_mask: torch.Tensor, draws: RoundDraws, dist_thres, mpack, *,
+                          discretization: DiscretizationParams, sample_params: SampleParams,
+                          policy: SearchPolicy):
+    """Sample pairs, query the model, build and rank pose hypotheses
+    (``find_in_subset``, impl/scene.hpp:242-367).
+
+    Returns (ts_flat [H, 4, 4], scores [H], first_idx [B1], first_valid [B1],
+    n_hypotheses), a pure function of ``draws``.
+    """
+    cloud = prep.cloud
+    b1, b2 = policy.num_first_samples, policy.num_second_samples
+    qcap = policy.query_cap
+    ks = policy.score_neighbors
+    lower = model.diameter * sample_params.min_diameter_factor
+    upper = model.diameter * sample_params.max_diameter_factor
+    thres = _f32(dist_thres) * _f32(model.resolution)
+
+    eligible_first = prep.tangent_mask & ~consumed & ~fp_mask & cloud.valid
+    firsts = sample_firsts(draws.first_words, eligible_first, b1)
+    # scoring neighbourhood: a uniform sample of the model-diameter ball (any
+    # point kind, impl/scene.hpp:273,432); balls smaller than K come whole
+    gidx = torch.arange(cloud.capacity, device=cloud.device)
+    q = cloud.xyz[firsts.idx]
+    blk = min(b1, 256)
+    nbr_idx, nbr_in_r = radius_sample(q, cloud.xyz, cloud.valid, model.diameter, ks,
+                                      hash_uniform(draws.nbr_words, gidx), block=blk)
+    # second-point pool: edge points of the ball, uniformly (impl/scene.hpp:284-290)
+    second_eligible = prep.tangent_mask & ~consumed & cloud.valid
+    pool_idx, pool_in_r = radius_sample(q, cloud.xyz, second_eligible, model.diameter,
+                                        policy.second_pool, hash_uniform(draws.pool_words, gidx),
+                                        block=blk)
+    seconds = sample_seconds(draws.gumbel, firsts, pool_idx, pool_in_r, second_eligible, b2)
+
+    p0 = q[:, None, :]
+    t0 = cloud.tangent[firsts.idx][:, None, :]
+    p1 = cloud.xyz[seconds.idx]
+    t1 = cloud.tangent[seconds.idx]
+    gates = pf.pair_gates(p0, p1, t0, lower, upper, policy.pair_parallel_epsilon)
+    feats = pf.pair_feature(p0, p1, t0, t1)
+    pair_ok = seconds.valid & gates & pf.feature_valid(feats, model.bounds_min, model.bounds_max)
+
+    mpairs, mvalid = query_pairs(model, feats, discretization, qcap, limit=policy.query_limit)
+    hyp_ok = pair_ok[..., None] & mvalid  # [B1, B2, Q]
+    shape = (b1, b2, qcap, 3)
+    ts = base_transform(p0[:, :, None].expand(shape), p1[:, :, None].expand(shape),
+                        t0[:, :, None].expand(shape), model.cloud.xyz[mpairs[..., 0]],
+                        model.cloud.xyz[mpairs[..., 1]], model.cloud.tangent[mpairs[..., 0]])
+    if sample_params.force_up:
+        hyp_ok = hyp_ok & ((1.0 - ts[..., 2, 2]).abs() <= 0.01)
+
+    groups = sk.pack_groups(cloud, prep.tangent_mask, consumed, nbr_idx, nbr_in_r,
+                            samples_on_all=_rank_on_all(policy))
+    rows = sk.poses_to_rows(ts.reshape(b1, b2 * qcap, 4, 4))
+    scores = sk.rank_groups(mpack, groups, rows, float(thres * thres),
+                            hyp_ok.reshape(b1, b2 * qcap), policy).reshape(-1)
+    return ts.reshape(-1, 4, 4), scores, firsts.idx, firsts.valid, hyp_ok.sum()
+
+
+def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_best, dist_thres,
+                      model_match_factor, *, policy: SearchPolicy, max_icp_iterations: int):
+    """Relaxed ICP + greedy acceptance + acceptance-gated tight polish.
+
+    Returns (t_fin, accept, new_corr, model_idx, counts, scores, consumed').
+    The finalist prescreen and the candidate-subset join belong to the fog
+    route and raise.
+    """
+    n_scene = cloud.capacity
+    if 0 < int(policy.finalist_prescreen) < t_best.shape[0]:
+        raise NotImplementedError(f"the finalist prescreen {_FOG_ROUTE}")
+    if 0 < int(policy.join_subset_capacity or 0) < n_scene:
+        raise NotImplementedError(f"the candidate-subset join {_FOG_ROUTE}")
+
+    # reference-faithful relaxed ICP only; the tight polish runs after (and
+    # gated on) acceptance
+    icp = icp_refine(model, cloud, tangent_mask, consumed, t_best, dist_thres,
+                     max_icp_iterations, tight_iterations=0,
+                     weighted_distance=policy.weighted_distance,
+                     negative_scores=policy.negative_scores,
+                     point_to_plane=policy.icp_point_to_plane,
+                     samples_on_all=policy.samples_on_all)
+    corr_valid, corr_midx = icp.corrs.valid, icp.corrs.model_idx
+    t_fin, fin_counts, fin_scores = icp.transform, icp.corrs.count, icp.corrs.score
+
+    # --- greedy acceptance (impl/scene.hpp:193-237) ---
+    order = torch.sort(-fin_counts, stable=True)[1]
+    mmf = _f32(model_match_factor)
+    min_pts = int(np.floor(mmf * _f32(model.n_edge)))
+    min_pts_all = int(np.floor(mmf * _f32(model.n_all)))
+    used = consumed
+    acc_ord, new_ord = [], []
+    for f in order.tolist():
+        cv = corr_valid[f]
+        new = cv & ~used
+        ok = ((new & tangent_mask).sum() >= min_pts) & (new.sum() >= min_pts_all)
+        used = torch.where(ok, used | cv, used)
+        acc_ord.append(ok)
+        new_ord.append(new)
+    inv_order = torch.argsort(order)
+    acc_ord, new_ord = torch.stack(acc_ord), torch.stack(new_ord)
+    accept, new_corr = acc_ord[inv_order], new_ord[inv_order]
+    consumed_next = consumed | (new_corr & accept[:, None]).any(0)
+
+    if max_icp_iterations > 0 and bool(accept.any()):
+        t_fin, new_corr, corr_midx, fin_counts, fin_scores, consumed_next = polish_accepted(
+            model, cloud, tangent_mask, consumed, dist_thres, policy, t_fin, accept, order,
+            acc_ord, inv_order)
+    return t_fin, accept, new_corr, corr_midx, fin_counts, fin_scores, consumed_next
+
+
+def polish_accepted(model, cloud, tangent_mask, consumed, dist_thres, policy, t_fin, accept,
+                    order, acc_ord, inv_order):
+    """Tight-polish every finalist of an accepting round, then re-derive the
+    reported corrs, counts, scores and point claims at the polished poses
+    (same order, frozen accept decisions).  The acceptance decision stays at
+    the unpolished pose (impl/scene.hpp:193-237)."""
+    t_pol = tight_polish(
+        model, cloud, tangent_mask, consumed, t_fin, dist_thres,
+        iterations=policy.tight_icp_iterations, orientation_weight=policy.tight_orientation_weight,
+        anneal=policy.tight_anneal, edges_only=bool(policy.tight_edges_only),
+        weighted_distance=policy.weighted_distance, negative_scores=policy.negative_scores,
+        point_to_plane=policy.icp_point_to_plane,
+        point_to_line_at_floor=bool(policy.tight_point_to_line),
+        samples_on_all=policy.samples_on_all)
+    corrs = finish_find(model, cloud, tangent_mask, consumed, t_pol, 2.0 * dist_thres,
+                        weighted_distance=policy.weighted_distance,
+                        negative_scores=policy.negative_scores,
+                        samples_on_all=policy.samples_on_all)
+    used = consumed
+    new_ord = []
+    for f, ok in zip(order.tolist(), acc_ord):
+        cv = corrs.valid[f]
+        new_ord.append(cv & ~used)
+        used = torch.where(ok, used | cv, used)
+    new_c = torch.stack(new_ord)[inv_order]
+    consumed2 = consumed | (new_c & accept[:, None]).any(0)
+    return t_pol, new_c, corrs.model_idx, corrs.count, corrs.score, consumed2
+
+
+def finalize_round(model: CompiledModel, prep: ScenePrep, consumed, fp_mask, t_best, first_idx,
+                   first_valid, n_hyp, dist_thres, model_match_factor, *, policy: SearchPolicy,
+                   max_icp_iterations: int):
+    """ICP-refine the finalists and run greedy acceptance (impl/scene.hpp:168-240).
+    Returns (RoundResult, consumed', fp')."""
+    fp_next = fp_mask.clone()
+    fp_next[first_idx[first_valid]] = True
+    t_fin, accept, new_corr, corr_midx, counts, scores, consumed_next = accept_and_polish(
+        model, prep.cloud, prep.tangent_mask, consumed, t_best, dist_thres, model_match_factor,
+        policy=policy, max_icp_iterations=max_icp_iterations)
+    return (RoundResult(t_fin, accept, new_corr, corr_midx, counts, scores, n_hyp),
+            consumed_next, fp_next)
+
+
+def search_round(model: CompiledModel, prep: ScenePrep, consumed, fp_mask, draws: RoundDraws,
+                 dist_thres, model_match_factor, mpack, *, discretization: DiscretizationParams,
+                 sample_params: SampleParams, policy: SearchPolicy, max_icp_iterations: int):
+    """One single-device search round.  Returns (RoundResult, consumed', fp').
+
+    Its two halves are ``torch.profiler`` ranges, "hypothesize" and
+    "finalize", which a profile of the search splits its time by."""
+    with torch.profiler.record_function("hypothesize"):
+        ts_flat, scores, first_idx, first_valid, n_hyp = hypothesize_and_score(
+            model, prep, consumed, fp_mask, draws, dist_thres, mpack,
+            discretization=discretization, sample_params=sample_params, policy=policy)
+    with torch.profiler.record_function("finalize"):
+        # finalists: highest scores, ties to the lower index (lax.top_k order)
+        best = torch.sort(scores, descending=True, stable=True)[1][:policy.finalists]
+        return finalize_round(model, prep, consumed, fp_mask, ts_flat[best], first_idx,
+                              first_valid, n_hyp, dist_thres, model_match_factor,
+                              policy=policy, max_icp_iterations=max_icp_iterations)
+
+
+def adaptive_outer_bound(n_model: int, n_left: int, n_scene: int, policy: SearchPolicy) -> int:
+    """Adaptive RANSAC outer sampling bound (impl/scene.hpp:131-141):
+    log(1-p) / log(1 - n_model/n_left) clamped to [min_sample_count, n_scene]."""
+    if policy.force_exhaustive:
+        return max(int(n_scene), 1)
+    if n_left <= 0:
+        return 0
+    outer_prob = min(float(n_model) / float(n_left), 1.0)
+    if outer_prob >= 1.0:
+        bound = policy.min_sample_count
+    else:
+        bound = int(np.log(1.0 - policy.match_probability) / np.log(1.0 - outer_prob))
+    bound = max(bound, policy.min_sample_count)
+    return min(bound, max(int(n_scene), 1))
+
+
+def ball_population_quantile(prep: ScenePrep, model: CompiledModel, *, sample: int = 256,
+                             ref_sample: int = 65536, quantile: float = 0.95,
+                             seed: int = 0) -> float:
+    """Estimated ``quantile`` population of the model-diameter ball around
+    eligible first points (the ``radius_search_inclusive`` count,
+    impl/scene.hpp:276), from ``sample`` random eligible firsts against a
+    ``ref_sample``-point scene subsample.  The draws come from a CPU
+    generator seeded with ``seed``, independent of the search's.  0.0 when
+    the scene has no eligible edge points."""
+    gen = torch.Generator().manual_seed(seed)
+    xyz, valid = prep.cloud.xyz, prep.cloud.valid
+    n = xyz.shape[0]
+    edge_ok = prep.tangent_mask & valid
+    ru = torch.rand(n, generator=gen).to(xyz.device)
+    ru2 = torch.rand(n, generator=gen).to(xyz.device)
+    f_score = torch.where(edge_ok, ru, -1.0)
+    fidx = torch.topk(f_score, min(sample, n))[1]
+    f_ok = f_score[fidx] >= 0.0
+    s_score = torch.where(valid, ru2, -1.0)
+    sidx = torch.topk(s_score, min(ref_sample, n))[1]
+    s_ok = s_score[sidx] >= 0.0
+    d2 = ((xyz[fidx][:, None, :] - xyz[sidx][None, :, :]) ** 2).sum(-1)
+    dia = _f32(model.diameter)
+    in_ball = (d2 <= float(dia * dia)) & s_ok[None, :]
+    frac = in_ball.sum(1) / torch.clamp(s_ok.sum(), min=1).to(torch.float32)
+    pop = torch.where(f_ok, frac * valid.sum().to(torch.float32), float("nan"))
+    q = float(torch.nanquantile(pop, quantile))
+    return 0.0 if (int(edge_ok.sum()) == 0 or math.isnan(q)) else q
+
+
+def adaptive_inner_bound(prep: ScenePrep, model: CompiledModel, policy: SearchPolicy, *,
+                         ball_q: float | None = None, **ball_kw) -> int:
+    """Per-first adaptive inner sampling bound (impl/scene.hpp:276-282) at the
+    ``quantile`` ball population: -log(1-p) * |ball| / n_model_all, clamped to
+    [min_sample_count, |ball|]."""
+    if ball_q is None:
+        ball_q = ball_population_quantile(prep, model, **ball_kw)
+    if ball_q <= 0.0:
+        return policy.min_sample_count
+    if policy.force_exhaustive:
+        return max(int(math.ceil(ball_q)), policy.min_sample_count)
+    n_all = max(int(model.n_all), 1)
+    bound = max(-math.log(1.0 - policy.match_probability) * ball_q / n_all,
+                policy.min_sample_count)
+    return int(math.ceil(min(bound, ball_q)))
+
+
+def adaptive_policy(prep: ScenePrep, model: CompiledModel,
+                    policy: SearchPolicy) -> tuple[SearchPolicy, float | None]:
+    """The policy a search of this scene runs, and the ball-population q95
+    it was read from (None when no adaptive knob needs it).
+
+    With ``adaptive_second_samples``, an inner bound above
+    ``num_second_samples`` raises it to ``max_second_samples`` (the JAX
+    package's two-rung ladder), widening ``second_pool`` to match.
+    """
+    ball_q = None
+    if policy.adaptive_second_samples or policy.adaptive_fine_rescore:
+        ball_q = ball_population_quantile(prep, model)
+    if policy.adaptive_second_samples:
+        bound = adaptive_inner_bound(prep, model, policy, ball_q=ball_q)
+        if bound > policy.num_second_samples:
+            b2 = policy.max_second_samples
+            policy = dataclasses.replace(policy, num_second_samples=b2,
+                                         second_pool=max(policy.second_pool, 2 * b2))
+    return policy, ball_q
+
+
+LAST_SEARCH_STATS: dict = {}
+
+
+@dataclasses.dataclass
+class Match:
+    """Accepted match (``match_t``, include/scene:23-28); ``transform`` maps
+    model -> scene (the reference inverts before returning, impl/scene.hpp:92)."""
+
+    transform: np.ndarray  # [4, 4] model -> scene
+    scene_corrs: np.ndarray  # [K] scene point indices (newly claimed)
+    model_corrs: np.ndarray  # [K] model point indices
+    signed_score: float  # normalized signed score (score / model size)
+    cast_score: float | None = None
+
+
+def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: float | None = None,
+             model_match_factor: float = 0.4, early_out_factor: float = 0.9,
+             sample_params: SampleParams = DEFAULT_SAMPLE_PARAMS,
+             discretization: DiscretizationParams = DEFAULT_DISCRETIZATION,
+             policy: SearchPolicy = DEFAULT_POLICY, max_icp_iterations: int = 10,
+             seed: int = 13, prep: ScenePrep | None = None, mesh=None,
+             generator: torch.Generator | None = None, device=None) -> list[Match]:
+    """Find all model instances in the scene (``scene::find_all_parallel``,
+    include/scene:47-48), on ``device`` (default: the model's).
+
+    Phases run the adaptive RANSAC outer bound as rounds of
+    ``num_first_samples`` firsts (impl/scene.hpp:70-95, 131-141); a phase
+    without an accepted match ends the search, and ``early_out`` stops a
+    phase once a match reaches ``early_out_factor * possible_model`` corrs.
+    The rounds' random inputs come from ``generator`` (a CPU generator,
+    default seeded with ``seed``), so a seed gives the same search on every
+    device but not the JAX package's (threefry) samples.  Runs under
+    ``strict_fp32``.
+
+    ``LAST_SEARCH_STATS`` gets the JAX package's keys (without its
+    executable-cache and profiler entries) plus ``coarse_kernel_launches``.
+    Raises ``NotImplementedError`` for ``mesh=``, ``scorer="jnp"`` and when
+    the fog-density switch would fire.
+    """
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded search (parallel/) is not ported yet "
+                                  "(ROADMAP queue A)")
+    if policy.scorer not in ("auto", "pallas"):
+        raise NotImplementedError(f"scorer={policy.scorer!r}: the port ranks through the "
+                                  "coarse kernel only")
+    device = torch.device(device) if device is not None else model.cloud.device
+    if dist_thres is None:
+        dist_thres = policy.corr_dist_factor
+    gen = generator if generator is not None else torch.Generator().manual_seed(seed)
+    launches0 = sk.COARSE_RANK.launches
+    with strict_fp32():
+        if prep is None:
+            prep = prepare_scene(scene_cloud.to(device), policy)
+        stats = {"rounds": 0, "phases": 0, "hypotheses_scored": 0, "finalists": 0,
+                 "accepted": 0, "join_overflow_max": 0}
+
+        policy, ball_q = adaptive_policy(prep, model, policy)
+        stats["num_second_samples_effective"] = policy.num_second_samples
+        stats["fine_rescore_full"] = False
+        if (policy.adaptive_fine_rescore and policy.two_phase_scoring
+                and policy.two_phase_fine_coarse and ball_q is not None
+                and ball_q > policy.fine_full_rescore_ratio * policy.score_neighbors):
+            raise NotImplementedError(
+                f"fog-density switch: ball population q95 {ball_q:.1f} > "
+                f"{policy.fine_full_rescore_ratio} x {policy.score_neighbors}; the exact "
+                f"full-pack routing needs kernel B2 and {_FOG_ROUTE}")
+        if ball_q is not None:
+            stats["ball_population_q95"] = int(ball_q)
+        mpack = sk.pack_model_cached(model, coarse_points=policy.coarse_model_points,
+                                     fine_points=policy.fine_model_points)
+
+        n = prep.cloud.capacity
+        consumed = torch.zeros(n, dtype=torch.bool, device=device)
+        fp = torch.zeros(n, dtype=torch.bool, device=device)
+        edge_valid = prep.tangent_mask & prep.cloud.valid
+        n_scene_edge = int(edge_valid.sum())
+        n_model = int(model.n_edge)
+        if policy.samples_on_all:
+            possible_model = int(model.n_all)
+        else:
+            possible_model = int(((torch.linalg.vector_norm(model.cloud.tangent, dim=-1) > 0.7)
+                                  & model.cloud.valid).sum())
+        early_out_threshold = early_out_factor * possible_model
+        round_s: list[float] = []
+
+        def publish():
+            LAST_SEARCH_STATS.clear()
+            LAST_SEARCH_STATS.update(stats)
+            LAST_SEARCH_STATS["rejection_rate"] = (1.0 - stats["accepted"]
+                                                   / max(stats["finalists"], 1))
+            if round_s:
+                LAST_SEARCH_STATS["round_ms_avg"] = 1000.0 * float(np.mean(round_s))
+            LAST_SEARCH_STATS["coarse_kernel_launches"] = sk.COARSE_RANK.launches - launches0
+
+        matches: list[Match] = []
+        rnd = 0
+        while rnd < policy.max_rounds:  # safety valve; phases end the search
+            n_left = int((edge_valid & ~consumed & ~fp).sum())
+            outer_bound = adaptive_outer_bound(n_model, n_left, n_scene_edge, policy)
+            if outer_bound == 0:
+                break
+            phase_rounds = max(1, -(-outer_bound // policy.num_first_samples))
+            stats["phases"] += 1
+            phase_accepted = phase_early_out = False
+            for _ in range(phase_rounds):
+                if rnd >= policy.max_rounds:
+                    break
+                draws = draw_round(gen, policy.num_first_samples, policy.second_pool, device)
+                t0 = time.perf_counter()
+                res, consumed, fp = search_round(
+                    model, prep, consumed, fp, draws, dist_thres, model_match_factor, mpack,
+                    discretization=discretization, sample_params=sample_params, policy=policy,
+                    max_icp_iterations=max_icp_iterations)
+                accept = res.accept.cpu().numpy()
+                round_s.append(time.perf_counter() - t0)
+                rnd += 1
+                stats["rounds"] += 1
+                stats["hypotheses_scored"] += int(res.hypotheses_scored)
+                stats["finalists"] += accept.shape[0]
+                stats["accepted"] += int(accept.sum())
+                if not accept.any():
+                    continue
+                phase_accepted = True
+                counts = res.count.cpu().numpy()
+                for f in np.argsort(-counts, kind="stable"):
+                    if not accept[f]:
+                        continue
+                    new = res.new_corr[f]
+                    sidx = torch.nonzero(new)[:, 0]
+                    matches.append(Match(
+                        transform=invert_rigid(res.transform[f]).cpu().numpy(),
+                        scene_corrs=sidx.cpu().numpy(),
+                        model_corrs=res.model_idx[f][sidx].cpu().numpy(),
+                        signed_score=float(normalize_score(model, res.score[f])),
+                    ))
+                    if policy.early_out and counts[f] >= early_out_threshold:
+                        phase_early_out = True
+                    if len(matches) >= policy.max_instances:
+                        publish()
+                        return matches
+                if phase_early_out:
+                    break  # impl/scene.hpp:341-347
+            if not phase_accepted:
+                break  # the full no-match budget is spent (impl/scene.hpp:70-73)
+        publish()
+        return matches
+
+
+def instantiate(model: CompiledModel, match: Match, instantiate_all: bool = True) -> np.ndarray:
+    """Place the model into the scene under a match transform
+    (``scene::instantiate``, impl/scene.hpp:512-531): every valid model point,
+    or with ``instantiate_all=False`` the match's model corrs."""
+    xyz = model.cloud.xyz.cpu().numpy()
+    idx = (np.flatnonzero(model.cloud.valid.cpu().numpy()) if instantiate_all
+           else match.model_corrs)
+    return xyz[idx] @ match.transform[:3, :3].T + match.transform[:3, 3]

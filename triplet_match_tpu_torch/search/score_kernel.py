@@ -1,0 +1,513 @@
+"""Two-phase hypothesis ranking (counterpart of ``triplet_match_tpu.search.score_pallas``).
+
+Hypotheses minted from one first point share that point's K-point scene
+neighbourhood, staged once per *group* as [8, K] channel planes.  Phase 1
+ranks every pose on a strided neighbourhood subsample against a coarse
+256-representative 4-D model block; the per-group top 1/keep_frac survive to
+phase 2, which re-ranks them against a 512-representative block with the
+strict count as the primary key (impl/scene.hpp:421-425, 492-506 batched).
+
+Both phases run one kernel, ``score_groups_coarse`` (TPU kernel B1,
+``score_pallas.py:_coarse_kernel``).  On a CUDA tensor it launches the
+hand-written Hopper kernel ``csrc/coarse_rank.cu``; on a CPU tensor it runs
+``score_groups_coarse_plain``, the plain PyTorch version of the same
+arithmetic.  Only the standard-density configuration is ported: the exact
+full-pack kernel (B2/B3) and the linearised coarse kernel (B4) are still to
+port, and the routes that need them raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import weakref
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from triplet_match_tpu_torch.kernels.build import load_coarse_rank
+
+_BIG = np.float32(1.0e12)
+_FAR = 1.0e6  # padding coordinate for invalid points
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class ModelPack(NamedTuple):
+    """Model arrays staged for the ranking kernels (built once per model).
+
+    Same layout as the JAX ``ModelPack``: ``channels_d``/``channels_w``/
+    ``md_edge``/``md_surf`` feed the exact kernels B2/B3 (not yet ported);
+    ``md_coarse``/``md_fine`` are the 4-D representative blocks
+    [x, y, z, w(kind), |p4|^2_hi, |p4|^2_lo, 1, 1] that B1 sweeps.  The
+    scalars are python floats (float32 values).
+    """
+
+    channels_d: torch.Tensor
+    channels_w: torch.Tensor
+    n_pad: int
+    center: torch.Tensor  # [3] the subtracted model centroid
+    md_edge: torch.Tensor
+    md_surf: torch.Tensor
+    md_coarse: torch.Tensor  # [8, NcP]
+    kind_off: float
+    coarse_slack: float
+    md_fine: torch.Tensor  # [8, NfP]
+    fine_slack: float
+
+
+def _coverage_subsample(xyz, valid, cap: int):
+    """Pick <= cap representatives with uniform surface coverage (host numpy).
+
+    Voxel-downsample: bisect the cell size until the occupied-cell count
+    fits the cap, keep one point per occupied cell.
+    """
+    idx = np.where(valid)[0]
+    if idx.size <= cap:
+        return idx
+    pts = xyz[idx]
+    lo = pts.min(0)
+    ext = float(max((pts.max(0) - lo).max(), 1e-9))
+
+    def occupied(cell):
+        q = np.floor((pts - lo) / cell).astype(np.int64)
+        return (q[:, 0] << 42) | (q[:, 1] << 21) | q[:, 2]
+
+    lo_c, hi_c = ext / 4096.0, ext
+    for _ in range(40):
+        mid = 0.5 * (lo_c + hi_c)
+        if np.unique(occupied(mid)).size > cap:
+            lo_c = mid
+        else:
+            hi_c = mid
+    _, first = np.unique(occupied(hi_c), return_index=True)
+    return np.sort(idx[first])
+
+
+_PACK_CACHE: dict = {}
+_PACK_CACHE_MAX = 8
+
+
+def pack_model_cached(model, max_points: int = 4096, coarse_points: int = 512,
+                      fine_points: int = 1536) -> ModelPack:
+    """Memoized :func:`pack_model`, keyed on the model's identity and the knobs.
+
+    The model is held weakly, and a recycled ``id`` never serves a stale pack.
+    """
+    key = (id(model), max_points, coarse_points, fine_points)
+    hit = _PACK_CACHE.get(key)
+    if hit is not None:
+        ref, pack = hit
+        if ref() is model:
+            return pack
+        _PACK_CACHE.pop(key, None)
+    pack = pack_model(model, max_points, coarse_points, fine_points)
+    _PACK_CACHE[key] = (weakref.ref(model), pack)
+    while len(_PACK_CACHE) > _PACK_CACHE_MAX:
+        _PACK_CACHE.pop(next(iter(_PACK_CACHE)))
+    return pack
+
+
+def _bf16_round(a: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 (round to nearest even) -> float32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def pack_model(model, max_points: int = 4096, coarse_points: int = 512,
+               fine_points: int = 1536) -> ModelPack:
+    """Stage a CompiledModel's cloud for gather-free ranking (host numpy; the
+    arithmetic of the JAX ``pack_model``, array for array).
+
+    Models above ``max_points`` are voxel-downsampled to a coverage-uniform
+    subsample.  Each 4-D block splits its representatives evenly between
+    edge and surface points; its slack is the exact per-kind coverage radius,
+    by which the ranking inflates its distance gate so that a pose scoring
+    on the full model cannot miss on the block.  Edge points sit ``kind_off``
+    away in the 4th coordinate, so a 4-D hit is an own-kind hit.
+    """
+    dev = model.cloud.device
+    xyz = model.cloud.xyz.cpu().numpy().astype(np.float32)
+    nrm = model.cloud.normal.cpu().numpy().astype(np.float32)
+    mtan = model.cloud.tangent.cpu().numpy().astype(np.float32)
+    valid = model.cloud.valid.cpu().numpy()
+    if int(valid.sum()) > max_points:
+        keep = _coverage_subsample(xyz, valid, max_points)
+        xyz, nrm, mtan = xyz[keep], nrm[keep], mtan[keep]
+        valid = np.ones(keep.size, bool)
+
+    n = xyz.shape[0]
+    n_pad = _round_up(n, 128)
+    center = xyz[valid].mean(axis=0) if valid.any() else np.zeros(3, np.float32)
+    xyz = np.where(valid[:, None], xyz - center, _FAR).astype(np.float32)
+    is_edge = (np.linalg.norm(mtan, axis=-1) > 0.7) & valid  # impl/scene.hpp:470
+    mref = np.where(is_edge[:, None], mtan, nrm)
+
+    def padn(a, fill=0.0, to=n_pad):
+        shape = (to - a.shape[0],) + a.shape[1:]
+        return np.concatenate([a, np.full(shape, fill, a.dtype)], axis=0)
+
+    xyz_p = padn(xyz, _FAR)
+    mref_p = padn(mref)
+    is_edge_p = padn(is_edge, False)
+    mp2 = np.sum(xyz_p * xyz_p, axis=-1)
+    zeros = np.zeros((n_pad,), np.float32)
+    ch_d = np.stack([xyz_p[:, 0], xyz_p[:, 1], xyz_p[:, 2], mp2,
+                     np.where(is_edge_p, 0.0, float(_BIG)), np.where(is_edge_p, float(_BIG), 0.0),
+                     zeros, zeros], axis=0).astype(np.float32)
+    ch_w = np.stack([zeros, zeros, zeros, zeros, zeros, mref_p[:, 0], mref_p[:, 1], mref_p[:, 2]],
+                    axis=0).astype(np.float32)
+
+    def block(pts):
+        bp = _round_up(max(pts.shape[0], 1), 128)
+        pts = padn(pts.astype(np.float32), _FAR, to=bp)
+        z = np.zeros((bp,), np.float32)
+        return np.stack([pts[:, 0], pts[:, 1], pts[:, 2], np.sum(pts * pts, axis=-1), z, z, z, z],
+                        axis=0).astype(np.float32)
+
+    edge_pts = xyz[valid & is_edge]
+    surf_pts = xyz[valid & ~is_edge]
+
+    def coarse(pts, cap):
+        if pts.shape[0] == 0:
+            return pts, 0.0
+        reps = pts[_coverage_subsample(pts, np.ones(pts.shape[0], bool), cap)]
+        r = 0.0
+        for s in range(0, pts.shape[0], 8192):
+            d2 = ((pts[s:s + 8192][:, None, :] - reps[None, :, :]) ** 2).sum(-1)
+            r = max(r, float(np.sqrt(d2.min(axis=1).max())))
+        return reps, r
+
+    # 4th-coordinate kind offset: a power of two >> the pack extent, so
+    # cross-kind pairs sit off^2 apart and a plain 4-D hit is an own-kind hit
+    ext = float(np.abs(xyz[valid]).max()) if valid.any() else 1.0
+    off = float(2.0 ** np.ceil(np.log2(max(4.0 * ext, 1e-6))))
+
+    def fourd_block(cap):
+        edge_c, r_e = coarse(edge_pts, cap // 2)
+        surf_c, r_s = coarse(surf_pts, cap // 2)
+        nb = edge_c.shape[0] + surf_c.shape[0]
+        nb_pad = _round_up(max(nb, 1), 128)
+        c_xyz = padn(np.concatenate([edge_c, surf_c], axis=0).astype(np.float32), 0.0, to=nb_pad)
+        c_w = padn(np.concatenate([np.full(edge_c.shape[0], off, np.float32),
+                                   np.zeros(surf_c.shape[0], np.float32)]), 0.0, to=nb_pad)
+        mp2 = np.sum(c_xyz * c_xyz, axis=-1) + c_w * c_w
+        mp2[nb:] = 2.0 * float(_BIG)  # padded entries can never register a hit
+        mp2_hi = _bf16_round(mp2)
+        mp2_lo = mp2 - mp2_hi
+        one = np.ones((nb_pad,), np.float32)
+        md = np.stack([c_xyz[:, 0], c_xyz[:, 1], c_xyz[:, 2], c_w, mp2_hi, mp2_lo, one, one],
+                      axis=0).astype(np.float32)
+        return md, max(r_e, r_s)
+
+    md_coarse, slack_c = fourd_block(coarse_points)
+    md_fine, slack_f = fourd_block(fine_points)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return ModelPack(t(ch_d), t(ch_w), n_pad, t(center.astype(np.float32)),
+                     t(block(edge_pts)), t(block(surf_pts)), t(md_coarse),
+                     float(np.float32(off)), float(np.float32(slack_c)), t(md_fine),
+                     float(np.float32(slack_f)))
+
+
+def group_channels(scene, tangent_mask, consumed, nbr_idx, nbr_valid,
+                   samples_on_all: bool = True) -> torch.Tensor:
+    """Per-neighbour channel vectors, channels-LAST [..., K, 8]: 0-2 xyz (FAR
+    when ineligible), 3 use_tangent, 4 eligibility, 5-7 ref vector."""
+    xyz = scene.xyz[nbr_idx]
+    use_tan = tangent_mask[nbr_idx]
+    elig = nbr_valid & scene.valid[nbr_idx] & ~consumed[nbr_idx]
+    if not samples_on_all:
+        elig = elig & (torch.linalg.vector_norm(scene.tangent[nbr_idx], dim=-1) > 0.7)
+    ref = torch.where(use_tan[..., None], scene.tangent[nbr_idx], scene.normal[nbr_idx])
+    xyz = torch.where(elig[..., None], xyz, _FAR)
+    return torch.cat([xyz, use_tan[..., None].to(torch.float32),
+                      elig[..., None].to(torch.float32), ref], dim=-1)
+
+
+def pack_groups(scene, tangent_mask, consumed, nbr_idx, nbr_valid,
+                samples_on_all: bool = True) -> torch.Tensor:
+    """Per-group scene neighbourhoods as [G, 8, K] channel planes."""
+    ch = group_channels(scene, tangent_mask, consumed, nbr_idx, nbr_valid,
+                        samples_on_all=samples_on_all)
+    return ch.transpose(-1, -2).contiguous()
+
+
+def poses_to_rows(ts: torch.Tensor) -> torch.Tensor:
+    """[..., 4, 4] -> [..., 16] row-major (R rows, t, zero pad) kernel layout."""
+    r = ts[..., :3, :3].reshape(*ts.shape[:-2], 9)
+    pad = torch.zeros(ts.shape[:-2] + (4,), dtype=ts.dtype, device=ts.device)
+    return torch.cat([r, ts[..., :3, 3], pad], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# B1: the coarse 4-D hit-count ranker
+# ---------------------------------------------------------------------------
+
+
+class _LaunchCounter:
+    """Counts launches of the CUDA kernel (and nothing else)."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def reset(self):
+        self.launches = 0
+
+
+COARSE_RANK = _LaunchCounter()
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 fused multiply-add, exact through float64 (a*b of two float32
+    values is exact in float64; the sum rounds once more on the way down,
+    which differs from one rounding in ~2^-29 of cases)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+# the plain ranker sweeps this many representatives, and about this many
+# (pose, point, rep) triples, at a time: its temporaries stay in cache
+_PLAIN_REP_CHUNK = 16
+_PLAIN_MAX_ELEMS = 1 << 21
+
+
+def score_groups_coarse_plain(groups: torch.Tensor, poses: torch.Tensor, block: torch.Tensor,
+                              thres2: float, off: float, thres2_strict: float, w_inf: float,
+                              w_str: float) -> torch.Tensor:
+    """Plain PyTorch version of the coarse ranker, in the TPU kernel's order
+    of float32 operations.
+
+    groups [G, 8, K]; poses [G, Hg, 16] already centre-shifted; block
+    [8, Nc].  Per pose: transform the K points, take the complete 4-D squared
+    distance to each representative as the kernel's 8-channel product
+    (channels [-2x, -2y, -2z, -2w, 1, 1, hi(|tp4|^2), lo(|tp4|^2)] against the
+    block's rows, accumulated in channel order with fused multiply-adds), the
+    per-point minimum, and the score
+    ``w_inf * #(dmin <= thres2) + w_str * #(dmin <= thres2_strict)``.
+    Ineligible points add +BIG to |tp4|^2.  Returns [G, Hg] float32.
+    """
+    g, _, k = groups.shape
+    hg = poses.shape[1]
+    nc = block.shape[1]
+    gc = max(1, _PLAIN_MAX_ELEMS // max(hg * k * _PLAIN_REP_CHUNK, 1))
+    out = []
+    for s in range(0, g, gc):
+        sc = groups[s:s + gc]
+        ps = poses[s:s + gc]
+        px, py, pz = (sc[:, None, c, :] for c in range(3))  # [gc, 1, K]
+        w = off * sc[:, None, 3, :]
+        inelig = (1.0 - sc[:, None, 4, :]) * float(_BIG)
+        q = [ps[:, :, i, None] for i in range(12)]  # [gc, Hg, 1]
+        tp = [_fma(q[3 * i + 2], pz, _fma(q[3 * i], px, q[3 * i + 1] * py)) + q[9 + i]
+              for i in range(3)]
+        tp2 = _fma(tp[2], tp[2], _fma(tp[0], tp[0], tp[1] * tp[1])) + w * w + inelig
+        hi = tp2.to(torch.bfloat16).float()[..., None]
+        lo = tp2[..., None] - hi
+        a0 = (-2.0 * tp[0])[..., None]
+        a1 = (-2.0 * tp[1])[..., None].double()
+        a2 = (-2.0 * tp[2])[..., None].double()
+        a3 = (-2.0 * w.expand_as(tp2))[..., None]
+        dmin = None
+        for r0 in range(0, nc, _PLAIN_REP_CHUNK):
+            m = block[:, r0:r0 + _PLAIN_REP_CHUNK]
+            d = a0 * m[0]
+            d = (a1 * m[1].double() + d).float()  # fused multiply-add, see _fma
+            d = (a2 * m[2].double() + d).float()
+            # channel 3: -2w * w_rep is 0 or -2 off^2 (off a power of two), exact
+            # in float32, so its fused multiply-add is a plain add
+            d = ((((d + a3 * m[3]) + m[4]) + m[5]) + hi) + lo  # [gc, Hg, K, chunk]
+            d = d.amin(-1)
+            dmin = d if dmin is None else torch.minimum(dmin, d)
+        hit = (dmin <= thres2).float() * w_inf + (dmin <= thres2_strict).float() * w_str
+        out.append(hit.sum(-1))
+    return torch.cat(out)
+
+
+def check_coarse_parity(got: torch.Tensor, ref: torch.Tensor, groups: torch.Tensor,
+                        poses: torch.Tensor, block: torch.Tensor, thres2: float, off: float,
+                        thres2_strict: float, strict_primary: bool) -> tuple[float, int]:
+    """Hold two coarse rankings of the same inputs to the B1 parity contract.
+
+    Both counts (inflated and strict) must agree exactly, except that a pose
+    may differ by as many points as it has points whose float64 4-D squared
+    distance lies within 1e-5 of a gate (relative): near a gate, two float32
+    sums taken in different orders may round to either side.  Where the counts
+    agree, the scores agree within K float32 ulps (the per-pose sum order).
+    ``poses`` are centre-shifted kernel rows.  Raises AssertionError;
+    returns (max |got - ref|, number of poses excused by near-gate points).
+    """
+    k = groups.shape[2]
+    got, ref = got.double().cpu(), ref.double().cpu()
+
+    def split(s):
+        major = torch.floor(s)
+        minor = torch.round((s - major) * (k + 1))
+        return (minor, major) if strict_primary else (major, minor)
+
+    (g_inf, g_str), (r_inf, r_str) = split(got), split(ref)
+    diff = (g_inf - r_inf).abs() + (g_str - r_str).abs()
+    bk = block.double().cpu()
+    bk = bk[:, (bk[4] + bk[5]) < 1e11]  # padded representatives never hit
+    excused = 0
+    for g, h in (diff > 0).nonzero().tolist():
+        q = poses[g, h].double().cpu()
+        sc = groups[g].double().cpu()
+        p = sc[:3].T @ q[:9].reshape(3, 3).T + q[9:12]
+        w = off * sc[3]
+        d2 = ((p[:, None, :] - bk[:3].T[None]) ** 2).sum(-1) + (w[:, None] - bk[3][None]) ** 2
+        dmin = d2.min(1).values + (1.0 - sc[4]) * float(_BIG)
+        near = (((dmin - thres2).abs() <= 1e-5 * thres2)
+                | ((dmin - thres2_strict).abs() <= 1e-5 * thres2_strict))
+        if float(diff[g, h]) > 2 * int(near.sum()):
+            raise AssertionError(f"pose ({g}, {h}): score {float(got[g, h])} vs "
+                                 f"{float(ref[g, h])} with {int(near.sum())} near-gate points")
+        excused += 1
+    err = (got - ref).abs()
+    tol = k * float(np.spacing(np.float32(k + 1)))
+    worst = float(torch.where(diff == 0, err, 0.0).max()) if err.numel() else 0.0
+    if worst > tol:
+        raise AssertionError(f"fractional tiebreak differs by {worst} > K ulps ({tol})")
+    return float(err.max()) if err.numel() else 0.0, excused
+
+
+def _coarse_launch(groups, poses, block, thres2, off, thres2_strict, w_inf, w_str):
+    """Launch ``csrc/coarse_rank.cu`` on the current stream (CUDA tensors only)."""
+    for name, t, dims in (("groups", groups, 3), ("poses", poses, 3), ("block", block, 2)):
+        if t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != dims:
+            raise ValueError(f"{name}: need a float32 CUDA tensor of rank {dims}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    g, ch, k = groups.shape
+    hg = poses.shape[1]
+    nc = block.shape[1]
+    if ch != 8 or poses.shape != (g, hg, 16) or block.shape[0] != 8:
+        raise ValueError(f"shapes groups {tuple(groups.shape)} poses {tuple(poses.shape)} "
+                         f"block {tuple(block.shape)}")
+    if not (groups.device == poses.device == block.device):
+        raise ValueError("groups, poses and block must share one device")
+    lib = load_coarse_rank()
+    groups, poses, block = groups.contiguous(), poses.contiguous(), block.contiguous()
+    out = torch.empty((g, hg), dtype=torch.float32, device=groups.device)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(groups.device).cuda_stream
+    err = lib.coarse_rank_launch(
+        groups.data_ptr(), poses.data_ptr(), block.data_ptr(), out.data_ptr(),
+        g, hg, k, nc, ctypes.c_float(thres2), ctypes.c_float(off),
+        ctypes.c_float(thres2_strict), ctypes.c_float(w_inf), ctypes.c_float(w_str), stream)
+    if err != 0:
+        raise RuntimeError("coarse_rank kernel launch failed: "
+                           f"{lib.coarse_rank_error_string(err).decode()}")
+    COARSE_RANK.launches += 1
+    return out
+
+
+def score_groups_coarse(mpack: ModelPack, groups: torch.Tensor, poses: torch.Tensor,
+                        dist_thres2, dist_thres2_strict=None, *, block: str = "coarse",
+                        strict_primary: bool = False) -> torch.Tensor:
+    """Rank all G*Hg poses against one of the pack's 4-D blocks (TPU kernel B1).
+
+    groups [G, 8, K]; poses [G, Hg, 16] (``poses_to_rows`` layout).  The score
+    is ``count_inflated + count_strict/(K+1)``, or with ``strict_primary``
+    ``count_strict + count_inflated/(K+1)``; ``dist_thres2`` is the
+    slack-inflated gate and ``dist_thres2_strict`` (default: the same) the
+    strict one.  A CUDA tensor runs the Hopper kernel, a CPU tensor the plain
+    version.  Returns [G, Hg] float32.
+    """
+    k = groups.shape[2]
+    t2 = _f32(dist_thres2)
+    t2s = t2 if dist_thres2_strict is None else _f32(dist_thres2_strict)
+    frac = _f32(1.0 / (k + 1))
+    w_inf, w_str = (frac, 1.0) if strict_primary else (1.0, frac)
+    md = mpack.md_coarse if block == "coarse" else mpack.md_fine
+    poses = poses.clone()
+    poses[..., 9:12] -= mpack.center
+    if groups.device.type == "cuda":
+        return _coarse_launch(groups, poses, md, t2, mpack.kind_off, t2s, w_inf, w_str)
+    if groups.device.type != "cpu":
+        raise ValueError(f"no coarse ranker for device {groups.device}")
+    return score_groups_coarse_plain(groups, poses, md, t2, mpack.kind_off, t2s, w_inf, w_str)
+
+
+def _inflate(thres2, slack: float) -> float:
+    s = np.sqrt(np.float32(thres2)) + np.float32(slack)
+    return float(np.float32(s * s))
+
+
+def two_phase_keep(hg: int, keep_frac: int, pose_tile: int) -> int:
+    """Poses per group that survive phase 1: 1/keep_frac of ``hg``, rounded up
+    to whole pose tiles, at least one tile."""
+    return max(pose_tile, -(-(hg // keep_frac) // pose_tile) * pose_tile)
+
+
+def score_groups_two_phase(mpack: ModelPack, groups: torch.Tensor, poses: torch.Tensor,
+                           dist_thres2, ok: torch.Tensor | None = None, *, mode: str = "count",
+                           pose_tile: int = 8, coarse_stride: int = 8, keep_frac: int = 32,
+                           coarse_model: bool = True, fine_stride: int = 1,
+                           coarse_linear: bool = False, fine_coarse: bool = False,
+                           fine_strict: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Early-drop analog: rank every pose on the strided subsample against
+    the coarse block, keep the per-group top 1/keep_frac (at least
+    ``pose_tile``), re-rank the survivors against the fine block.
+
+    Only the ``fine_coarse`` count-mode route with the coarse-model phase 1
+    is ported; the others need kernels B2-B4 and raise.  Invalid hypotheses
+    (``ok`` False) rank at -1 before the keep, so they never take a slot a
+    valid pose needs; dropped poses score -1.  Returns (scores, counts)
+    [G, Hg].
+    """
+    if not coarse_model or not fine_coarse or mode != "count":
+        raise NotImplementedError(
+            "two-phase ranking without the coarse and fine 4-D blocks needs the exact "
+            "full-pack kernel (ROADMAP queue B, B2/B3)")
+    if coarse_linear:
+        raise NotImplementedError("the linearised coarse kernel is not ported (ROADMAP queue B, B4)")
+    g, hg = poses.shape[:2]
+    keep = two_phase_keep(hg, keep_frac, pose_tile)
+    coarse = groups[:, :, ::coarse_stride].contiguous()
+    s1 = score_groups_coarse(mpack, coarse, poses, _inflate(dist_thres2, mpack.coarse_slack),
+                             dist_thres2)
+    if ok is not None:
+        s1 = torch.where(ok, s1, -1.0)
+    # stable descending sort: equal scores keep index order, as lax.top_k does
+    kept = torch.sort(s1, dim=1, descending=True, stable=True)[1][:, :keep]
+    poses_kept = torch.gather(poses, 1, kept[..., None].expand(-1, -1, poses.shape[2]))
+    fine_groups = groups if fine_stride == 1 else groups[:, :, ::fine_stride].contiguous()
+    s2 = score_groups_coarse(mpack, fine_groups, poses_kept,
+                             _inflate(dist_thres2, mpack.fine_slack), dist_thres2,
+                             block="fine", strict_primary=fine_strict)
+    c2 = s2.to(torch.int64)
+    out = torch.full((g, hg), -1.0, device=poses.device).scatter(1, kept, s2)
+    cnt = torch.zeros((g, hg), dtype=torch.int64, device=poses.device).scatter(1, kept, c2)
+    if ok is not None:
+        out = torch.where(ok, out, -1.0)
+        cnt = torch.where(ok, cnt, 0)
+    return out, cnt
+
+
+def rank_groups(mpack: ModelPack, groups: torch.Tensor, rows: torch.Tensor, thres2,
+                ok: torch.Tensor, policy) -> torch.Tensor:
+    """Policy-driven ranking dispatch: the two-phase screen.
+
+    Returns [G, P] scores with invalid poses at -1.  The single-phase route
+    (K < 256, or the weighted/negative knobs) needs kernel B2 and raises.
+    """
+    ks = groups.shape[-1]
+    exact_semantics = policy.weighted_distance or policy.negative_scores
+    if not (policy.early_drop and policy.two_phase_scoring and ks >= 256 and not exact_semantics):
+        raise NotImplementedError(
+            "single-phase ranking needs the exact count kernel score_groups_pallas "
+            "(ROADMAP queue B, B2)")
+    s_pl, _ = score_groups_two_phase(
+        mpack, groups, rows, thres2, ok, mode=policy.ranking_mode,
+        pose_tile=policy.two_phase_pose_tile, coarse_stride=policy.two_phase_stride,
+        keep_frac=policy.two_phase_keep_frac, coarse_model=policy.two_phase_coarse_model,
+        fine_stride=policy.two_phase_fine_stride, coarse_linear=policy.two_phase_coarse_linear,
+        fine_coarse=policy.two_phase_fine_coarse, fine_strict=policy.two_phase_fine_strict)
+    return torch.where(ok, s_pl, -1.0)
