@@ -1,32 +1,47 @@
-"""Smoke run of the PyTorch port's main path on one CUDA card.
+"""Smoke run of the PyTorch port's main paths on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. device  — a CUDA card is required; there is no CPU fallback.
-2. build   — compile csrc/coarse_rank.cu from this checkout (nvcc, sm_90a).
-3. kernel  — the coarse ranker (TPU kernel B1) against its plain PyTorch
-             version on the card, at both shapes of the main path (phase 1
-             and phase 2 of the two-phase screen), on real neighbourhoods of
-             the fixture scene with near-true and junk poses.  Integer counts
-             must agree exactly, except points whose float64 4-D distance
-             lies within 1e-5 * gate of the gate; the fractional tiebreak
-             within K float32 ulps.  Kernel and plain times by CUDA events.
-4. main    — compile the 2400-point box model, build the 131072-point
-             touching-fog recall scene (seed 0), prepare it, and run
-             find_all with the recall-protocol settings twice (first and
-             warm call).  The first match must sit within 1 mm / 0.5 deg of
-             ground truth (box-symmetry aware), the kernel must have been
-             launched by the search, and the fog switch must stay off.
-5. profile — one more warm find_all on the prepared scene under
-             torch.profiler: device busy share of the call, the device
-             kernels that take most time, host launches, stream syncs and
-             device-to-host copies, and the host time of each round's
-             "hypothesize" and "finalize" ranges.
+1. device   — a CUDA card is required; there is no CPU fallback.
+2. build    — compile csrc/coarse_rank.cu and csrc/exact_rank.cu from this
+              checkout (one nvcc each, started together, sm_90a).
+3. B1       — the coarse ranker (TPU kernel B1) against its plain PyTorch
+              version on the card, at both shapes of the standard-density
+              path (phase 1 and phase 2 of the two-phase screen), on real
+              neighbourhoods of the 131k fixture scene with near-true and
+              junk poses.  Integer counts must agree exactly, except points
+              whose float64 4-D distance lies within 1e-5 * gate of the gate;
+              the fractional tiebreak within K float32 ulps.
+4. main131  — compile the 2400-point box model, build the 131072-point
+              touching-fog recall scene (seed 0), prepare it, and run
+              find_all with the recall-protocol settings twice (first and
+              warm call).  The first match must sit within 1 mm / 0.5 deg of
+              ground truth (box-symmetry aware), B1 must have been launched by
+              the search, and the fog switch must stay off.
+5. profile131 — one more warm find_all on the prepared 131k scene under
+              torch.profiler: device busy share, the device kernels that take
+              most time, host launches, stream syncs and device-to-host
+              copies, and the host time of each round's "hypothesize" and
+              "finalize" ranges.
+6. B2       — the exact ranker (TPU kernel B2) against its plain version at
+              the fog route's shapes on the 500k fixture (seed 0): phase 1
+              (strided groups, every hypothesis) and phase 2 (full-K groups,
+              the kept poses), and the single-phase route with the weighted
+              and negative epilogue; kernel and plain version on the same
+              full-shape inputs.  Counts must agree exactly except near-gate points (reported);
+              scores within 1e-5 relative.
+7. main500  — the 500000-point recall scene (seed 0): find_all first and warm.
+              The fog switch must fire, the search must launch B2 and not
+              B1, the subset join must not overflow, and the first match
+              must sit within 1 mm / 0.5 deg of ground truth.
+8. profile500 — one warm 500k find_all under torch.profiler, as phase 5.
 
-The last two lines of standard output are one JSON object per kernel of the
-path and then {"ok": true, "device": {...}}.
+Kernel and plain times are CUDA-event means over warm launches.  Every
+timing line carries the nvidia-smi name and power limit.  The last two lines
+of standard output are one JSON object listing the kernels of the paths and
+then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -35,6 +50,13 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+
+# H100 SXM published peaks (NVIDIA data sheet): 67 TFLOP/s fp32 outside the
+# tensor cores, i.e. 3.35e13 fp32 instructions/s counting an FMA as one, and
+# 3.35 TB/s of HBM3
+FP32_INSTR_PER_S = 3.35e13
+HBM_BYTES_PER_S = 3.35e12
 
 
 def _smi() -> str:
@@ -61,6 +83,17 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _bound(instr: float, nbytes: float) -> tuple[float, str]:
+    """Least time (ms) on the card and what sets it: fp32 instructions at the
+    issue peak or bytes at the memory rate."""
+    t_ops, t_bytes = instr / FP32_INSTR_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def _union_us(spans) -> float:
     """Total length of the union of (start, end) intervals."""
     total, cur_s, cur_e = 0.0, None, None
@@ -74,8 +107,9 @@ def _union_us(spans) -> float:
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def _profile(fn, smi: str) -> None:
-    """Run ``fn`` once under torch.profiler and print where its time went."""
+def _profile(tag: str, fn, smi: str) -> dict:
+    """Run ``fn`` once under torch.profiler, print where its time went and
+    return the headline numbers."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -102,16 +136,90 @@ def _profile(fn, smi: str) -> None:
     d2h = sum(1 for e in dev if "DtoH" in e.name)
     range_ms = {r: [e.time_range.elapsed_us() / 1e3 for e in host if e.name == r] for r in ranges}
     share = f"{100.0 * busy_us / wall_us:.1f} %" if dev else "not measured (no device events)"
-    _log(f"[profile] warm find_all (scene prepared) under torch.profiler: wall "
+    _log(f"[{tag}] warm find_all (scene prepared) under torch.profiler: wall "
          f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms ({share}) | host kernel "
          f"launches {launches}, stream syncs {len(syncs)} "
          f"({sum(e.time_range.elapsed_us() for e in syncs) / 1e3:.3f} ms), device-to-host "
          f"copies {d2h} | {smi}")
     for r, ms in range_ms.items():
-        _log(f"[profile] range {r}: host ms per round {[round(m, 3) for m in ms]}")
+        _log(f"[{tag}] range {r}: host ms per round {[round(m, 3) for m in ms]}")
     for n, (cnt, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
-        _log(f"[profile] device {us / 1e3:9.3f} ms {100.0 * us / max(busy_us, 1e-9):5.1f} % "
+        _log(f"[{tag}] device {us / 1e3:9.3f} ms {100.0 * us / max(busy_us, 1e-9):5.1f} % "
              f"x{cnt:<5d} {n[:110]}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3, "launches": launches,
+            "syncs": len(syncs), "range_ms": range_ms}
+
+
+def _check_poses(dev, prep, model, t_gt, policy, gen, tag_seed):
+    """Neighbourhood groups of ``num_first_samples`` random scene edge points
+    (K = score_neighbors, ranking eligibility of ``policy``) and [G, Hg]
+    poses, half near the true pose and half junk, at the adaptive policy's
+    Hg = second samples x pair candidates."""
+    import torch
+
+    from triplet_match_tpu_torch.core.transforms import strict_fp32
+    from triplet_match_tpu_torch.ops.knn import radius_sample
+    from triplet_match_tpu_torch.search import driver, score_kernel as sk
+    from triplet_match_tpu_torch.search.sampling import hash_uniform
+
+    scene = prep.cloud
+    g, ks = policy.num_first_samples, policy.score_neighbors
+    hg = policy.num_second_samples * policy.query_cap
+    edge_idx = torch.nonzero(prep.tangent_mask)[:, 0]
+    firsts = edge_idx[torch.randint(0, edge_idx.numel(), (g,), generator=gen).to(dev)]
+    gidx = torch.arange(scene.capacity, device=dev)
+    with strict_fp32():
+        nbr_idx, nbr_ok = radius_sample(scene.xyz[firsts], scene.xyz, scene.valid,
+                                        float(model.diameter), ks,
+                                        hash_uniform((123, tag_seed), gidx))
+        groups = sk.pack_groups(scene, prep.tangent_mask,
+                                torch.zeros(scene.capacity, dtype=torch.bool, device=dev),
+                                nbr_idx, nbr_ok, samples_on_all=driver._rank_on_all(policy))
+        t_inv = torch.linalg.inv(torch.as_tensor(t_gt)).to(dev)
+        ts = t_inv.expand(g, hg, 4, 4).clone()
+        noise = torch.randn((g, hg, 3), generator=gen).to(dev)
+        ts[:, : hg // 2, :3, 3] += 0.004 * noise[:, : hg // 2]
+        ts[:, hg // 2:, :3, 3] += 0.5 * noise[:, hg // 2:]
+        rows = sk.poses_to_rows(ts)
+    return groups, rows
+
+
+def _main_path(tag, driver, sk, model, scene, t_gt, kw, smi):
+    """find_all twice (first, warm) with the launch counts zeroed just before
+    the first call; returns (stats, B1 launches, B2 launches, matches)."""
+    import torch
+
+    from triplet_match_tpu_torch.io.synthetic import sym_delta
+
+    torch.cuda.reset_peak_memory_stats()
+    sk.COARSE_RANK.reset()
+    sk.EXACT_RANK.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    matches = driver.find_all(model, scene, **kw)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    b1, b2 = sk.COARSE_RANK.launches, sk.EXACT_RANK.launches
+    stats = dict(driver.LAST_SEARCH_STATS)
+    t0 = time.perf_counter()
+    matches2 = driver.find_all(model, scene, **kw)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not matches or not matches2:
+        raise AssertionError(f"[{tag}] find_all found nothing (stats {stats})")
+    dt, dr = sym_delta(matches[0].transform, t_gt)
+    dt2, dr2 = sym_delta(matches2[0].transform, t_gt)
+    _log(f"[{tag}] find_all first {t_first:.3f} s, warm {t_warm:.3f} s | rounds "
+         f"{stats['rounds']} hypotheses {stats['hypotheses_scored']} | matches {len(matches)} | "
+         f"first match {dt * 1000:.4f} mm / {dr:.4f} deg (warm {dt2 * 1000:.4f} mm / "
+         f"{dr2:.4f} deg) | B1 launches {b1}, B2 launches {b2} | peak {peak / 2**20:.1f} MiB | "
+         f"{smi}")
+    _log(f"[{tag}] stats {json.dumps(stats)}")
+    if not (dt < 1e-3 and dr < 0.5):
+        raise AssertionError(f"[{tag}] pose error {dt * 1000:.4f} mm / {dr:.4f} deg beyond "
+                             "1 mm / 0.5 deg")
+    return stats, b1, b2
 
 
 def main() -> int:
@@ -124,74 +232,66 @@ def main() -> int:
     import numpy as np
 
     from triplet_match_tpu_torch import config as cfg
+    from triplet_match_tpu_torch.core.cloud import PointCloud
     from triplet_match_tpu_torch.core.transforms import strict_fp32
     from triplet_match_tpu_torch.index.model import compile_model
-    from triplet_match_tpu_torch.io.synthetic import recall_box_model, recall_scene, sym_delta
+    from triplet_match_tpu_torch.io.synthetic import recall_box_model, recall_scene
     from triplet_match_tpu_torch.kernels import build as kbuild
-    from triplet_match_tpu_torch.ops.knn import radius_sample
     from triplet_match_tpu_torch.search import driver, score_kernel as sk
-    from triplet_match_tpu_torch.search.sampling import hash_uniform
-    from triplet_match_tpu_torch.core.cloud import PointCloud
 
+    t_all = time.perf_counter()
+    walls: dict = {}
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    _log(f"[device] {name} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+    _log(f"[device] {name} | nvidia-smi: {smi} | torch {torch.__version__} "
+         f"cuda {torch.version.cuda}")
 
-    # --- build --------------------------------------------------------------
+    # --- build ---------------------------------------------------------------
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        list(pool.map(lambda k: kbuild.build(k, ptxas_info=True), ("coarse_rank", "exact_rank")))
     kbuild.load_coarse_rank()
-    _log(f"[build] coarse_rank.cu: {time.perf_counter() - t0:.2f} s "
-         f"(nvcc {kbuild.BUILD_SECONDS.get('coarse_rank', 0.0):.2f} s) | {smi}")
+    kbuild.load_exact_rank()
+    walls["build"] = time.perf_counter() - t0
+    for k in ("coarse_rank", "exact_rank"):
+        info = [ln.strip() for ln in kbuild.BUILD_LOG.get(k, "").splitlines()
+                if "registers" in ln or "spill" in ln]
+        _log(f"[build] {k}.cu: nvcc {kbuild.BUILD_SECONDS.get(k, 0.0):.2f} s | {' | '.join(info)} "
+             f"| {smi}")
+    _log(f"[build] both kernels {walls['build']:.2f} s wall (one nvcc each, in parallel) | {smi}")
 
-    # --- fixture --------------------------------------------------------------
+    # --- 131k fixture and B1 ---------------------------------------------------
+    t0 = time.perf_counter()
     disc = cfg.DiscretizationParams()
     sample = cfg.SampleParams(min_diameter_factor=0.3, max_diameter_factor=0.95)
     policy = cfg.SearchPolicy()
     xyz, nrm, tan = recall_box_model()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    tc = time.perf_counter()
     model = compile_model(PointCloud.from_arrays(xyz, nrm, tan, device=dev), disc, sample, policy)
     torch.cuda.synchronize()
-    t_compile = time.perf_counter() - t0
+    t_compile = time.perf_counter() - tc
     scene, t_gt = recall_scene(131072, seed=0, device=dev)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    tp = time.perf_counter()
     with strict_fp32():
         prep = driver.prepare_scene(scene, policy)
     torch.cuda.synchronize()
-    t_prep = time.perf_counter() - t0
-    _log(f"[fixture] model lut {tuple(model.lut.shape)} n_edge {int(model.n_edge)} pairs "
-         f"{int(model.pair_count)} | scene {scene.capacity} pts, {int(prep.n_edge)} edges")
+    t_prep = time.perf_counter() - tp
+    _log(f"[fixture131] compile_model {t_compile:.3f} s | prepare_scene {t_prep:.3f} s | model lut "
+         f"{tuple(model.lut.shape)} n_edge {int(model.n_edge)} pairs {int(model.pair_count)} | "
+         f"scene {scene.capacity} pts, {int(prep.n_edge)} edges | {smi}")
 
-    # --- kernel vs plain at the main path's shapes ----------------------------
     mpack = sk.pack_model_cached(model, coarse_points=policy.coarse_model_points,
                                  fine_points=policy.fine_model_points)
     gen = torch.Generator().manual_seed(1)
-    # phase 1 ranks every hypothesis of a first point: the adaptive policy's
-    # second samples times the pair candidates of each
     eff_policy, _ = driver.adaptive_policy(prep, model, policy)
-    g, ks = policy.num_first_samples, policy.score_neighbors
-    hg = eff_policy.num_second_samples * eff_policy.query_cap
-    edge_idx = torch.nonzero(prep.tangent_mask)[:, 0]
-    firsts = edge_idx[torch.randint(0, edge_idx.numel(), (g,), generator=gen).to(dev)]
-    gidx = torch.arange(scene.capacity, device=dev)
-    with strict_fp32():
-        nbr_idx, nbr_ok = radius_sample(scene.xyz[firsts], scene.xyz, scene.valid,
-                                        float(model.diameter), ks,
-                                        hash_uniform((123, 456), gidx))
-        groups = sk.pack_groups(prep.cloud, prep.tangent_mask,
-                                torch.zeros(scene.capacity, dtype=torch.bool, device=dev),
-                                nbr_idx, nbr_ok)
-        t_inv = torch.linalg.inv(torch.as_tensor(t_gt)).to(dev)
-        ts = t_inv.expand(g, hg, 4, 4).clone()
-        noise = torch.randn((g, hg, 3), generator=gen).to(dev)
-        ts[:, : hg // 2, :3, 3] += 0.004 * noise[:, : hg // 2]
-        ts[:, hg // 2:, :3, 3] += 0.5 * noise[:, hg // 2:]
-        rows = sk.poses_to_rows(ts)
+    groups, rows = _check_poses(dev, prep, model, t_gt, eff_policy, gen, 456)
+    hg = rows.shape[1]
     thres = np.float32(3.0) * np.float32(float(model.resolution))
     t2 = float(thres * thres)
-    kernels = []
+    b1_phases = []
     keep = sk.two_phase_keep(hg, policy.two_phase_keep_frac, policy.two_phase_pose_tile)
     phases = (("phase1", policy.two_phase_stride, "coarse", hg, False),
               ("phase2", policy.two_phase_fine_stride, "fine", keep, policy.two_phase_fine_strict))
@@ -224,64 +324,145 @@ def main() -> int:
                                              t2, strict)
         ms = _cuda_ms(kernel, 20)
         plain_ms = _cuda_ms(plain, 2)
-        _log(f"[kernel] B1 {phase}: groups {tuple(grp.shape)} poses {tuple(pr.shape)} block "
-             f"{tuple(block.shape)} | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms | "
-             f"max |kernel-plain| {err:.3g}, near-gate poses {n_near} | hits mean "
+        # the work this run's data needs: eligible points x poses x real reps,
+        # 7 fp32 instructions each (1 mul, 3 FMA, 2 add for the rep's |p4|^2
+        # hi/lo, 1 min; the point's own |tp4|^2 is added once per point)
+        n_el = (grp[:, 4] > 0.5).sum(1).double()
+        reps = int(((block[4] + block[5]) < 1e11).sum())
+        evals = float((n_el * n_poses).sum()) * reps
+        bound_ms, bound_by = _bound(7.0 * evals,
+                                    _nbytes(grp, pr, block) + 4 * grp.shape[0] * n_poses)
+        _log(f"[B1] {phase}: groups {tuple(grp.shape)} poses {tuple(pr.shape)} block "
+             f"{tuple(block.shape)} ({reps} reps) | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+             f"bound {bound_ms:.4f} ms ({bound_by}, {evals:.4g} evaluations) | max "
+             f"|kernel-plain| {err:.3g}, near-gate poses {n_near} | hits mean "
              f"{float(got.mean()):.3f} max {float(got.max()):.3f} | {smi}")
-        kernels.append({"phase": phase, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err})
+        b1_phases.append({"phase": phase, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                          "bound_ms": bound_ms, "bound_by": bound_by})
+    walls["B1"] = time.perf_counter() - t0
 
-    # --- main path ------------------------------------------------------------
+    # --- 131k main path ----------------------------------------------------------
+    t0 = time.perf_counter()
     kw = dict(dist_thres=3.0, model_match_factor=0.5, sample_params=sample, discretization=disc,
               policy=policy, max_icp_iterations=10, seed=5)
-    torch.cuda.reset_peak_memory_stats()
-    sk.COARSE_RANK.reset()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    matches = driver.find_all(model, scene, **kw)
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    launches = sk.COARSE_RANK.launches
-    stats = dict(driver.LAST_SEARCH_STATS)
-    t0 = time.perf_counter()
-    matches2 = driver.find_all(model, scene, **kw)
-    torch.cuda.synchronize()
-    t_warm = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    if not matches or not matches2:
-        raise AssertionError(f"find_all found nothing (stats {stats})")
-    dt, dr = sym_delta(matches[0].transform, t_gt)
-    dt2, dr2 = sym_delta(matches2[0].transform, t_gt)
-    _log(f"[main] compile_model {t_compile:.3f} s | prepare_scene {t_prep:.3f} s | find_all first "
-         f"{t_first:.3f} s, warm {t_warm:.3f} s | rounds {stats['rounds']} hypotheses "
-         f"{stats['hypotheses_scored']} | matches {len(matches)} | first match "
-         f"{dt * 1000:.4f} mm / {dr:.4f} deg (warm {dt2 * 1000:.4f} mm / {dr2:.4f} deg) | "
-         f"kernel launches {launches} | peak {peak / 2**20:.1f} MiB | {smi}")
-    _log(f"[main] stats {json.dumps(stats)}")
-    if not (dt < 1e-3 and dr < 0.5):
-        raise AssertionError(f"pose error {dt * 1000:.4f} mm / {dr:.4f} deg beyond 1 mm / 0.5 deg")
+    stats, b1_launches, b2_launches = _main_path("main131", driver, sk, model, scene, t_gt, kw,
+                                                 smi)
     if stats["num_second_samples_effective"] != eff_policy.num_second_samples:
-        raise AssertionError("the kernel check ran at other shapes than the search: "
+        raise AssertionError("the B1 check ran at other shapes than the search: "
                              f"{eff_policy.num_second_samples} second samples vs "
                              f"{stats['num_second_samples_effective']}")
-    if launches <= 0 or stats.get("coarse_kernel_launches", 0) <= 0:
-        raise AssertionError("the search did not launch the coarse kernel")
-    if stats["fine_rescore_full"]:
-        raise AssertionError("the fog-density switch fired")
+    if b1_launches <= 0 or stats.get("coarse_kernel_launches", 0) <= 0:
+        raise AssertionError("the 131k search did not launch B1")
+    if stats["fine_rescore_full"] or b2_launches != 0:
+        raise AssertionError("the fog-density switch fired at 131k")
+    walls["main131"] = time.perf_counter() - t0
 
-    # --- profile --------------------------------------------------------------
-    _profile(lambda: driver.find_all(model, scene, prep=prep, **kw), smi)
+    t0 = time.perf_counter()
+    _profile("profile131", lambda: driver.find_all(model, scene, prep=prep, **kw), smi)
+    walls["profile131"] = time.perf_counter() - t0
+    del prep, scene, groups, rows
 
-    line = {"kernels": [{
-        "name": "coarse_rank (B1, two-phase coarse 4-D hit-count ranker)",
-        "route": "cuda",
-        "source": "triplet_match_tpu_torch/csrc/coarse_rank.cu",
-        "replaces": "triplet_match_tpu/search/score_pallas.py:625",
-        "launches": launches,
-        "max_abs_err": max(k["max_abs_err"] for k in kernels),
-        "ms": kernels[0]["ms"],
-        "plain_ms": kernels[0]["plain_ms"],
-        "phases": kernels,
-    }]}
+    # --- 500k fixture and B2 -------------------------------------------------------
+    t0 = time.perf_counter()
+    scene5, t_gt5 = recall_scene(500000, seed=0, device=dev)
+    torch.cuda.synchronize()
+    tp = time.perf_counter()
+    with strict_fp32():
+        prep5 = driver.prepare_scene(scene5, policy)
+    torch.cuda.synchronize()
+    t_prep5 = time.perf_counter() - tp
+    eff5, ball_q = driver.adaptive_policy(prep5, model, policy)
+    if not ball_q > policy.fine_full_rescore_ratio * policy.score_neighbors:
+        raise AssertionError(f"the 500k fixture does not fire the fog switch (q95 {ball_q})")
+    fog5, fprep5 = driver.fog_policy(eff5, prep5, model)
+    _log(f"[fixture500] prepare_scene {t_prep5:.3f} s | scene {scene5.capacity} pts, "
+         f"{int(prep5.n_edge)} detected edges, {int(fprep5.n_edge)} raw-tangent edges | ball q95 "
+         f"{ball_q:.1f} (ratio {ball_q / policy.score_neighbors:.2f}) | exact blocks "
+         f"{mpack.n_edge_cols} edge + {mpack.n_surf_cols} surface columns | {smi}")
+    groups5, rows5 = _check_poses(dev, fprep5, model, t_gt5, fog5, gen, 789)
+    hg5 = rows5.shape[1]
+    keep5 = sk.two_phase_keep(hg5, fog5.two_phase_keep_frac, fog5.two_phase_pose_tile)
+    me, ms_blk = sk.exact_blocks(mpack)
+    inv2t = sk._inv2t(t2)
+    b2_phases = []
+    checks = (("phase1", fog5.two_phase_stride, hg5, False, False),
+              ("phase2", fog5.two_phase_fine_stride, keep5, False, False),
+              ("single-phase weighted+negative", 1, hg5, True, True))
+    for phase, stride, n_poses, weighted, negative in checks:
+        grp = groups5[:, :, ::stride].contiguous()
+        lo = (hg5 - n_poses) // 2  # half near-true poses, half junk
+        pr = rows5[:, lo:lo + n_poses].contiguous()
+        shifted = pr.clone()
+        shifted[..., 9:12] -= mpack.center
+
+        def kernel():
+            return sk.score_groups_exact(mpack, grp, pr, t2, weighted_distance=weighted,
+                                         negative_scores=negative)
+
+        def plain():
+            return sk.score_groups_exact_plain(grp, shifted, me, ms_blk, t2, inv2t, weighted,
+                                               negative)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        torch.cuda.synchronize()
+        err, n_near = sk.check_exact_parity(got, ref, grp, shifted, me, ms_blk, t2)
+        ms = _cuda_ms(kernel, 10)
+        plain_ms = _cuda_ms(plain, 1)
+        # the work this run's data needs: eligible points x poses x model
+        # points, 5 fp32 instructions each (1 mul, 2 FMA, 1 add, 1 min)
+        n_el = (grp[:, 4] > 0.5).sum(1).double()
+        evals = float((n_el * n_poses).sum()) * (me.shape[1] + ms_blk.shape[1])
+        bytes_in = _nbytes(grp, pr) + 16 * (me.shape[1] + ms_blk.shape[1])
+        bound_ms, bound_by = _bound(5.0 * evals, bytes_in + 8 * grp.shape[0] * n_poses)
+        _log(f"[B2] {phase}: groups {tuple(grp.shape)} poses {tuple(pr.shape)} blocks "
+             f"{tuple(me.shape)} + {tuple(ms_blk.shape)} | eligible points per group mean "
+             f"{float(n_el.mean()):.2f} max {int(n_el.max())} | kernel {ms:.4f} ms, plain "
+             f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}, {evals:.4g} evaluations) | "
+             f"max |score diff| {err:.3g}, near-gate poses {n_near} | count mean "
+             f"{float(got[1].float().mean()):.3f} max {int(got[1].max())} | {smi}")
+        b2_phases.append({"phase": phase, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                          "near_gate_poses": n_near, "bound_ms": bound_ms, "bound_by": bound_by})
+    walls["B2"] = time.perf_counter() - t0
+
+    # --- 500k main path ----------------------------------------------------------
+    t0 = time.perf_counter()
+    stats5, b1_500, b2_500 = _main_path("main500", driver, sk, model, scene5, t_gt5, kw, smi)
+    if not stats5["fine_rescore_full"]:
+        raise AssertionError("the fog-density switch did not fire at 500k")
+    if stats5["num_second_samples_effective"] != eff5.num_second_samples:
+        raise AssertionError("the B2 check ran at other shapes than the search")
+    if b2_500 <= 0 or stats5["exact_kernel_launches"] <= 0:
+        raise AssertionError("the 500k search did not launch B2")
+    if b1_500 != 0 or stats5["coarse_kernel_launches"] != 0:
+        raise AssertionError("the 500k search launched B1")
+    if stats5["join_overflow_max"] != 0:
+        raise AssertionError(f"the subset join overflowed by {stats5['join_overflow_max']}")
+    walls["main500"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _profile("profile500", lambda: driver.find_all(model, scene5, prep=prep5, **kw), smi)
+    walls["profile500"] = time.perf_counter() - t0
+    walls["total"] = time.perf_counter() - t_all
+    _log(f"[wall] seconds per phase {json.dumps({k: round(v, 3) for k, v in walls.items()})} | "
+         f"{smi}")
+
+    def entry(name, source, replaces, launches, phases):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": max(p["max_abs_err"] for p in phases),
+                "ms": phases[0]["ms"], "plain_ms": phases[0]["plain_ms"],
+                "bound_ms": phases[0]["bound_ms"], "bound_by": phases[0]["bound_by"],
+                "library_ms": None, "phases": phases}
+
+    line = {"kernels": [
+        entry("coarse_rank (B1, two-phase coarse 4-D hit-count ranker)",
+              "triplet_match_tpu_torch/csrc/coarse_rank.cu",
+              "triplet_match_tpu/search/score_pallas.py:625", b1_launches, b1_phases),
+        entry("exact_rank (B2, exact two-minimum count ranker)",
+              "triplet_match_tpu_torch/csrc/exact_rank.cu",
+              "triplet_match_tpu/search/score_pallas.py:394", b2_500, b2_phases),
+    ]}
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

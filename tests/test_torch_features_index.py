@@ -51,7 +51,7 @@ def models():
     xyz, nrm, tan = make_box_model(n_edge=120, n_face=360, size=(1.0, 0.8, 0.6), seed=0)
     jm = jmodel.compile_model(JCloud.from_arrays(xyz, nrm, tan), DISC, SAMPLE, SearchPolicy(),
                               pair_block=128)
-    tm = tmodel.compile_model(PointCloud.from_arrays(xyz, nrm, tan), TDISC, TSAMPLE,
+    tm = tmodel.compile_model(PointCloud.from_arrays(xyz, nrm, tan, device="cpu"), TDISC, TSAMPLE,
                               tcfg.SearchPolicy(), pair_block=128)
     return jm, tm
 
@@ -138,7 +138,7 @@ def test_compiled_model_from_numpy_roundtrip(models, tmp_path):
     path = str(tmp_path / "model.npz")
     save_model(path, jm, DISC)
     with np.load(path) as z:
-        tm = tmodel.compiled_model_from_numpy(dict(z))
+        tm = tmodel.compiled_model_from_numpy(dict(z), device="cpu")
     ref, got = model_arrays(jm), port_arrays(tm)
     assert got.keys() == ref.keys()
     for k in ref:

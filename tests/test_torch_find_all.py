@@ -41,10 +41,11 @@ FIND = dict(dist_thres=3.0, model_match_factor=0.5, max_icp_iterations=5, seed=1
 def fixture():
     xyz, nrm, tan = make_box_model(n_edge=120, n_face=360, size=(1.0, 0.8, 0.6), seed=0)
     scene, t_gt, _ = embed_in_scene(xyz, nrm, tan, noise=0.001, n_clutter=200, seed=7)
-    tmodel = compile_model(PointCloud.from_arrays(xyz, nrm, tan), tcfg.DiscretizationParams(),
+    tmodel = compile_model(PointCloud.from_arrays(xyz, nrm, tan, device="cpu"),
+                           tcfg.DiscretizationParams(),
                            TSAMPLE, tcfg.SearchPolicy(), pair_block=128)
     tscene = PointCloud.from_arrays(*(np.array(getattr(scene, f))
-                                      for f in ("xyz", "normal", "tangent", "valid")))
+                                      for f in ("xyz", "normal", "tangent", "valid")), device="cpu")
     return (xyz, nrm, tan), scene, t_gt, tmodel, tscene
 
 
@@ -77,12 +78,50 @@ def test_find_all_matches_jax(fixture):
 
 
 def test_find_all_raises_off_the_slice(fixture):
+    """The fog route runs now (tests/test_torch_fog_round.py); what is still
+    to port raises and names its ROADMAP item: the meshes (A12), the
+    orientation-weighted full ranking (B3) and the linearised coarse kernel
+    (B4), on the standard route and behind the fog switch."""
     _, _, _, tmodel, tscene = fixture
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A, A12"):
         td.find_all(tmodel, tscene, policy=TPOLICY, mesh=object(), **FIND)
-    fog = dataclasses.replace(TPOLICY, fine_full_rescore_ratio=0.0)
-    with pytest.raises(NotImplementedError, match="fog"):
-        td.find_all(tmodel, tscene, policy=fog, sample_params=TSAMPLE, **FIND)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A, A12"):
+        td.prepare_scene(tscene, TPOLICY, mesh=object())
+    for ratio in (16.0, 0.0):
+        pol = dataclasses.replace(TPOLICY, fine_full_rescore_ratio=ratio)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue B, B3"):
+            td.find_all(tmodel, tscene, policy=dataclasses.replace(pol, ranking_mode="full"),
+                        sample_params=TSAMPLE, **FIND)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B, B4"):
+        td.find_all(tmodel, tscene,
+                    policy=dataclasses.replace(TPOLICY, two_phase_coarse_linear=True),
+                    sample_params=TSAMPLE, **FIND)
+
+
+def test_entry_points_default_to_the_card():
+    """Clouds, fixtures and models land on the CUDA card unless the caller
+    asks for the CPU; without a card they raise as torch does."""
+    from triplet_match_tpu_torch.index.model import compiled_model_from_numpy
+    from triplet_match_tpu_torch.io import synthetic as tsyn
+
+    xyz, nrm, tan = make_box_model(n_edge=24, n_face=36, seed=0)
+    makers = [lambda: PointCloud.from_arrays(xyz, nrm, tan),
+              lambda: tsyn.embed_in_scene(xyz, nrm, tan, n_clutter=10)[0],
+              lambda: tsyn.recall_scene(3000, seed=0)[0],
+              lambda: compiled_model_from_numpy(
+                  {f"cloud_{k}": v for k, v in zip(("xyz", "normal", "tangent", "valid"),
+                                                   (xyz, nrm, tan, np.ones(len(xyz), bool)))}
+                  | {k: np.zeros(1) for k in ("resolution", "diameter", "to_voxel", "lut", "edge",
+                                              "bounds_min", "bounds_max", "keys", "pairs",
+                                              "pair_count", "n_edge", "n_all")}
+                  | {"margin": 5}).cloud]
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises((RuntimeError, AssertionError)):
+                make()
+    assert PointCloud.from_arrays(xyz, device="cpu").device.type == "cpu"
 
 
 def test_strict_fp32_context_restores_tf32_flags():

@@ -8,6 +8,7 @@ machine without them:
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -26,7 +27,7 @@ SAMPLE = cfg.SampleParams(min_diameter_factor=0.3, max_diameter_factor=0.95)
 @pytest.fixture(scope="module")
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the coarse_rank kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
     dev = torch.device("cuda", 0)
     xyz, nrm, tan = make_box_model(n_edge=120, n_face=360, size=(1.0, 0.8, 0.6), seed=0)
     model = compile_model(PointCloud.from_arrays(xyz, nrm, tan, device=dev),
@@ -85,3 +86,63 @@ def test_find_all_on_card_launches_the_kernel(card):
     dt, dr = sym_delta(matches[0].transform, t_gt)
     assert dt < 6e-3 and dr < 0.6
     assert driver.LAST_SEARCH_STATS["coarse_kernel_launches"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", ["plain", "weighted", "negative"])
+@pytest.mark.parametrize("big", [False, True])
+def test_exact_kernel_matches_plain(card, knobs, big):
+    """B2 against its plain version; ``big`` packs 4096 model points, whose
+    blocks need more than 48 KB of shared memory."""
+    dev = card[0]
+    n_edge, n_face = (1500, 4500) if big else (120, 360)
+    xyz, nrm, tan = make_box_model(n_edge=n_edge, n_face=n_face, size=(1.0, 0.8, 0.6), seed=0)
+    pack = sk.pack_model(SimpleNamespace(cloud=PointCloud.from_arrays(xyz, nrm, tan, device=dev)))
+    me, ms = sk.exact_blocks(pack)
+    assert ((me.shape[1] + ms.shape[1]) * 16 > 48 * 1024) == big
+    scene, t_gt, _ = embed_in_scene(xyz, nrm, tan, noise=0.001, n_clutter=2000, seed=7,
+                                    device=dev)
+    tm = torch.linalg.vector_norm(scene.tangent, dim=-1) > 0.7
+    rng = np.random.default_rng(4)
+    g, hg, k = 16, 96, 256
+    nbr_idx = torch.from_numpy(rng.integers(0, scene.capacity, (g, k))).to(dev)
+    nbr_ok = torch.from_numpy(rng.random((g, k)) > 0.1).to(dev)
+    groups = sk.pack_groups(scene, tm, torch.zeros(scene.capacity, dtype=torch.bool, device=dev),
+                            nbr_idx, nbr_ok)
+    ts = np.tile(np.linalg.inv(t_gt).astype(np.float32), (g, hg, 1, 1))
+    ts[:, : hg // 2, :3, 3] += rng.normal(0, 0.004, (g, hg // 2, 3)).astype(np.float32)
+    ts[:, hg // 2:, :3, 3] += rng.normal(0, 0.3, (g, hg - hg // 2, 3)).astype(np.float32)
+    rows = sk.poses_to_rows(torch.from_numpy(ts).to(dev))
+    rows[..., 9:12] -= pack.center
+    t2 = float(np.float32(0.012) ** 2)
+    weighted, negative = knobs == "weighted", knobs == "negative"
+    inv2t = sk._inv2t(t2)
+
+    before = sk.EXACT_RANK.launches
+    got = sk._exact_launch(groups, rows, me, ms, t2, inv2t, weighted, negative)
+    torch.cuda.synchronize()
+    assert sk.EXACT_RANK.launches == before + 1
+    ref = sk.score_groups_exact_plain(groups, rows, me, ms, t2, inv2t, weighted, negative)
+    sk.check_exact_parity(got, ref, groups, rows, me, ms, t2)
+    assert (got[1][:, : hg // 2].float().mean(1) > got[1][:, hg // 2:].float().mean(1)).all()
+    with pytest.raises(ValueError):
+        sk._exact_launch(groups.double(), rows, me, ms, t2, inv2t, weighted, negative)
+    with pytest.raises(ValueError):
+        sk._exact_launch(groups.cpu(), rows, me, ms, t2, inv2t, weighted, negative)
+
+
+@pytest.mark.cuda
+def test_fog_find_all_on_card_launches_the_exact_kernel(card):
+    dev, model, scene, t_gt = card
+    policy = dataclasses.replace(cfg.SearchPolicy(), num_first_samples=16, num_second_samples=8,
+                                 query_cap=8, score_neighbors=256, finalists=2, max_rounds=2,
+                                 fine_full_rescore_ratio=0.0)
+    matches = driver.find_all(model, scene, dist_thres=3.0, model_match_factor=0.5,
+                              sample_params=SAMPLE, policy=policy, max_icp_iterations=5, seed=13)
+    stats = driver.LAST_SEARCH_STATS
+    assert stats["fine_rescore_full"] is True
+    assert stats["exact_kernel_launches"] > 0 and stats["coarse_kernel_launches"] == 0
+    assert stats["join_overflow_max"] == 0
+    assert matches
+    dt, dr = sym_delta(matches[0].transform, t_gt)
+    assert dt < 6e-3 and dr < 0.6

@@ -50,8 +50,8 @@ def fixture():
     d["margin"] = jm.margin
     scene, t_gt, _ = embed_in_scene(xyz, nrm, tan, noise=0.001, n_clutter=200, seed=7)
     tscene = PointCloud.from_arrays(*(np.array(getattr(scene, f))
-                                      for f in ("xyz", "normal", "tangent", "valid")))
-    return jm, compiled_model_from_numpy(d), scene, tscene
+                                      for f in ("xyz", "normal", "tangent", "valid")), device="cpu")
+    return jm, compiled_model_from_numpy(d, device="cpu"), scene, tscene
 
 
 @pytest.mark.parametrize("grid_threshold", [32768, 100])

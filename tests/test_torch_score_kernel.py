@@ -39,7 +39,7 @@ def setup():
     d = {f"cloud_{k}": np.asarray(getattr(jm.cloud, k)) for k in _CLOUD_FIELDS}
     d.update({k: np.asarray(getattr(jm, k)) for k in _MODEL_FIELDS})
     d["margin"] = jm.margin
-    tm = compiled_model_from_numpy(d)
+    tm = compiled_model_from_numpy(d, device="cpu")
     scene, t_gt, _ = embed_in_scene(xyz, nrm, tan, noise=0.001, n_clutter=200, seed=7)
     prep = prepare_scene(scene, POLICY)
     jpack = jsp.pack_model(jm, coarse_points=256, fine_points=512)
@@ -141,19 +141,24 @@ def test_two_phase_keep_set_identical_under_ties(setup):
 
 
 def test_rank_groups_raises_off_the_slice(setup):
+    """The routes that need a kernel still to port raise and name its ROADMAP
+    item: the orientation-weighted full mode (B3), on both the single-phase
+    and the two-phase route, and the linearised coarse kernel (B4)."""
     import dataclasses
 
     from triplet_match_tpu_torch import config as tcfg
 
     tp = setup["tpack"]
-    groups = torch.from_numpy(setup["groups"][:, :, :128].copy())
     rows = torch.from_numpy(setup["rows"])
     ok = torch.ones(rows.shape[:2], dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="B2"):
-        tsk.rank_groups(tp, groups, rows, setup["t2"], ok, tcfg.SearchPolicy())
-    weighted = dataclasses.replace(tcfg.SearchPolicy(), weighted_distance=True)
-    with pytest.raises(NotImplementedError, match="B2"):
-        tsk.rank_groups(tp, torch.from_numpy(setup["groups"]), rows, setup["t2"], ok, weighted)
+    full = dataclasses.replace(tcfg.SearchPolicy(), ranking_mode="full")
+    for k in (128, 256):
+        groups = torch.from_numpy(setup["groups"][:, :, :k].copy())
+        with pytest.raises(NotImplementedError, match="ROADMAP queue B, B3"):
+            tsk.rank_groups(tp, groups, rows, setup["t2"], ok, full)
     linear = dataclasses.replace(tcfg.SearchPolicy(), two_phase_coarse_linear=True)
-    with pytest.raises(NotImplementedError, match="B4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B, B4"):
         tsk.rank_groups(tp, torch.from_numpy(setup["groups"]), rows, setup["t2"], ok, linear)
+    with pytest.raises(NotImplementedError, match="B3"):
+        tsk.score_groups_exact(tp, torch.from_numpy(setup["groups"]), rows, setup["t2"],
+                               mode="full")

@@ -34,7 +34,8 @@ def test_box_model_and_embed_identical():
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
     js, jt, ji = jsyn.embed_in_scene(*ref, noise=0.001, n_clutter=200, seed=7, capacity=700)
-    ts, tt, ti = tsyn.embed_in_scene(*got, noise=0.001, n_clutter=200, seed=7, capacity=700)
+    ts, tt, ti = tsyn.embed_in_scene(*got, noise=0.001, n_clutter=200, seed=7, capacity=700,
+                                  device="cpu")
     for a, b in zip(_cloud_arrays(ts), _cloud_arrays(js)):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(tt, jt)
@@ -50,7 +51,7 @@ def test_recall_scene_matches_recall_study(seed):
     for a, b in zip(arrays, study.model_arrays("box")):
         np.testing.assert_array_equal(a, b)
     jcloud, jt = study.build_scene(6000, seed)
-    tcloud, tt = tsyn.recall_scene(6000, seed)
+    tcloud, tt = tsyn.recall_scene(6000, seed, device="cpu")
     for a, b in zip(_cloud_arrays(tcloud), _cloud_arrays(jcloud)):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(tt, jt)

@@ -49,8 +49,11 @@ class PointCloud:
 
     @staticmethod
     def from_arrays(xyz, normal=None, tangent=None, valid=None, capacity: int | None = None,
-                    device="cpu") -> "PointCloud":
-        """Build a cloud from host arrays, padding to ``capacity``.
+                    device="cuda") -> "PointCloud":
+        """Build a cloud from host arrays on ``device``, padding to ``capacity``.
+
+        The default device is the CUDA card; without one this raises as torch
+        does, and a CPU cloud must be asked for (``device="cpu"``).
 
         Rows with NaN/inf in any field are invalidated and zeroed up front
         (impl/model.hpp:24-30), exactly as the JAX ``from_arrays`` does.

@@ -96,6 +96,56 @@ def weighted_kabsch(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> to
     return _rigid(r, t)
 
 
+def gauss_newton_pose_step(src: torch.Tensor, dst: torch.Tensor, m_dir: torch.Tensor,
+                           m_kind: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One Gauss-Newton rigid update of a hybrid point-to-plane objective,
+    batched over leading dims.
+
+    Minimises sum_i w_i |M_i (src_i + dx - dst_i)|^2 over the se(3) update
+    dx = (omega, t) linearised at identity (apply it to the already
+    transformed ``src``): M = n n^T for a surface corr (``m_kind`` False,
+    n = ``m_dir``), M = I - t t^T for an edge corr (t = ``m_dir``).  The 6x6
+    normal equations get Levenberg damping 1e-6 * trace / 6 and are solved
+    with ``torch.linalg.solve_ex`` (no host sync); the rotation comes from
+    Rodrigues' formula with the axis guarded at angle 1e-12.
+
+    src, dst, m_dir: [..., N, 3]; m_kind: [..., N] bool; w: [..., N].
+    Returns [..., 4, 4], the small update as a rigid pose.
+    """
+    def project(v):  # v [..., N, 3] -> M v
+        along = (v * m_dir).sum(-1, keepdim=True) * m_dir
+        return torch.where(m_kind[..., None], v - along, along)
+
+    px, py, pz = src.unbind(-1)
+    zeros = torch.zeros_like(px)
+    ones = torch.ones_like(px)
+    # the six columns of J = [-[p]x | I], each [..., N, 3]
+    cols = [torch.stack(c, dim=-1) for c in (
+        (zeros, -pz, py), (pz, zeros, -px), (-py, px, zeros),
+        (ones, zeros, zeros), (zeros, ones, zeros), (zeros, zeros, ones))]
+    mcols = torch.stack([project(c) for c in cols], dim=-3)  # [..., 6, N, 3]
+    md = project(src - dst)
+    mw = mcols * w[..., None, :, None]
+    a = torch.einsum("...ind,...jnd->...ij", mw, mcols)
+    b = -torch.einsum("...ind,...nd->...i", mw, md)
+    eye6 = torch.eye(6, dtype=a.dtype, device=a.device)
+    tr = torch.diagonal(a, dim1=-2, dim2=-1).sum(-1)
+    a = a + (1e-6 * tr / 6.0)[..., None, None] * eye6
+    x = torch.linalg.solve_ex(a, b[..., None])[0][..., 0]
+    omega, trans = x[..., :3], x[..., 3:]
+
+    angle = torch.linalg.vector_norm(omega, dim=-1)
+    axis = omega / torch.clamp(angle, min=1e-12)[..., None]
+    ax, ay, az = axis.unbind(-1)
+    z = torch.zeros_like(ax)
+    k = torch.stack([torch.stack([z, -az, ay], -1), torch.stack([az, z, -ax], -1),
+                     torch.stack([-ay, ax, z], -1)], -2)
+    eye3 = torch.eye(3, dtype=src.dtype, device=src.device)
+    r = (eye3 + torch.sin(angle)[..., None, None] * k
+         + (1.0 - torch.cos(angle))[..., None, None] * (k @ k))
+    return _rigid(r, trans)
+
+
 def transform_points(t: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply [..., 4, 4] to [..., N, 3]."""
     return pts @ t[..., :3, :3].transpose(-1, -2) + t[..., None, :3, 3]

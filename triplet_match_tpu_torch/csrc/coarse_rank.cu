@@ -11,7 +11,8 @@
 // the 8-channel distance product accumulated channel by channel with fused
 // multiply-adds, |tp4|^2 split into a bfloat16 part and its remainder — written
 // with explicit __fmaf_rn/__fmul_rn/__fadd_rn so the compiler cannot contract
-// or reorder them.  The plain PyTorch version (score_kernel.py
+// or reorder them.  The point's two |tp4|^2 terms are added once after the
+// minimum (exact, since rounding is monotone).  The plain PyTorch version (score_kernel.py
 // score_groups_coarse_plain) performs the same operations, so the per-point
 // distances agree bit for bit and the integer counts exactly; the per-pose sum
 // is a fixed-order warp reduction (no atomics: results are deterministic), which
@@ -25,9 +26,10 @@
 //
 // Bound on H100: FP32 issue.  At the main path's shapes phase 1 is
 // 256 groups x 512 poses x 64 points x 256 reps = 2.1 G (pose, point, rep)
-// evaluations of 4 FMA + 4 adds + 1 min, plus 6 shared loads each; the bytes
-// are KB per block (K <= 128 points, Nc <= 512 reps).  A faster form (tensor
-// cores on a hi/lo split, register-tiled representatives) is later work.
+// evaluations of 1 mul + 3 FMA + 2 adds + 1 min, plus 6 shared loads each;
+// the bytes are KB per block (K <= 128 points, Nc <= 512 reps).  A faster
+// form (tensor cores on a hi/lo split, register-tiled representatives) is
+// later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,10 +110,12 @@ coarse_rank_kernel(const float* __restrict__ groups, const float* __restrict__ p
         d = __fmaf_rn(a3, bw[m], d);
         d = __fadd_rn(d, bhi[m]);
         d = __fadd_rn(d, blo[m]);
-        d = __fadd_rn(d, hi);
-        d = __fadd_rn(d, lo);
         dmin = fminf(dmin, d);
       }
+      // the point's |tp4|^2 is the same for every representative, and
+      // x -> (x + hi) + lo is monotone under rounding, so adding it after the
+      // min gives the TPU kernel's per-representative sum's minimum bit for bit
+      dmin = __fadd_rn(__fadd_rn(dmin, hi), lo);
       acc = __fadd_rn(acc, __fadd_rn(dmin <= t2 ? w_inf : 0.0f, dmin <= t2s ? w_str : 0.0f));
     }
 #pragma unroll

@@ -74,14 +74,15 @@ class CompiledModel:
         return tuple(self.lut.shape)
 
 
-def compiled_model_from_numpy(d, device="cpu") -> CompiledModel:
+def compiled_model_from_numpy(d, device="cuda") -> CompiledModel:
     """Build a ``CompiledModel`` from a mapping of numpy arrays.
 
     Field names are those of ``triplet_match_tpu.index.serialize``
     (``cloud_xyz``, ``cloud_normal``, ``cloud_tangent``, ``cloud_valid``,
     ``lut``, ``keys``, ``pairs``, ...), so an ``np.load`` of a saved JAX
     model, or the JAX model's arrays converted with ``np.asarray``, carry
-    across.  Integer arrays widen to int64.
+    across.  Integer arrays widen to int64; tensors land on ``device``
+    (default the CUDA card).
     """
 
     def t(name, dtype=None):

@@ -117,10 +117,11 @@ def fog_patches(rng, n_clutter: int, seed_base: int, n_per: int = 2000, size=(1.
 
 def embed_in_scene(model_xyz, model_normal, model_tangent, *, rotation=None, translation=None,
                    noise: float = 0.0, n_clutter: int = 0, clutter_extent: float = 4.0,
-                   seed: int = 7, capacity: int | None = None, device="cpu"):
+                   seed: int = 7, capacity: int | None = None, device="cuda"):
     """Place a transformed copy of the model into a cluttered scene.
 
-    Returns (scene PointCloud, t_model_to_scene [4, 4] float32, instance_mask).
+    Returns (scene PointCloud on ``device``, t_model_to_scene [4, 4] float32,
+    instance_mask).
     """
     rng = np.random.default_rng(seed)
     r = rotation if rotation is not None else rotation_matrix(rng.normal(size=3),
@@ -175,7 +176,7 @@ def recall_scene_arrays(n_points: int, seed: int, arrays=None):
     return s_xyz, s_nrm, s_tan, t_gt
 
 
-def recall_scene(n_points: int, seed: int, arrays=None, device="cpu"):
+def recall_scene(n_points: int, seed: int, arrays=None, device="cuda"):
     """The recall-protocol scene as a PointCloud on ``device``: (cloud, t_gt)."""
     s_xyz, s_nrm, s_tan, t_gt = recall_scene_arrays(n_points, seed, arrays)
     return PointCloud.from_arrays(s_xyz, s_nrm, s_tan, device=device), t_gt

@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-Each kernel is a ``csrc/*.cu`` file with a plain ``extern "C"`` launcher,
-compiled by ``nvcc`` into a shared library at first use and loaded with
-``ctypes``.  Libraries land in ``triplet_match_tpu_torch/_build/`` under a
-name keyed by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads at once.  Nothing here runs at import.
+Each kernel is a ``csrc/*.cu`` file with a plain ``extern "C"`` launcher
+(``<name>_launch``, returning the launch's ``cudaError_t``), compiled by
+``nvcc`` into a shared library at first use and loaded with ``ctypes``.
+Libraries land in ``triplet_match_tpu_torch/_build/`` under a name keyed by a
+hash of the source and the flags, so an edited source rebuilds and an
+unchanged one loads at once.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: dict[str, float] = {}  # seconds each library took to compile in this process
+BUILD_LOG: dict[str, str] = {}  # nvcc's output of each compile in this process
 
 
 def _nvcc() -> str:
@@ -35,8 +37,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists; return its path."""
+def build(name: str, ptxas_info: bool = False) -> Path:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists; return its path.
+
+    ``ptxas_info`` adds ``-Xptxas -v`` (registers, shared memory, spills, kept
+    in ``BUILD_LOG``); it does not change the library, so not its name.
+    """
     src = _SRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
@@ -44,9 +50,11 @@ def build(name: str) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    verbose = ("-Xptxas", "-v") if ptxas_info else ()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *verbose, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
+    BUILD_LOG[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)
@@ -54,15 +62,31 @@ def build(name: str) -> Path:
     return lib
 
 
+def _load(name: str, argtypes: list) -> ctypes.CDLL:
+    """Build (first use) and load ``csrc/<name>.cu``; bind ``<name>_launch``
+    (returns a cudaError_t as int) and ``<name>_error_string``."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        launch = getattr(lib, f"{name}_launch")
+        launch.argtypes = argtypes
+        launch.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _LOADED[name] = lib
+    return lib
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
 def load_coarse_rank() -> ctypes.CDLL:
     """The coarse-ranker library (``csrc/coarse_rank.cu``), built on first use."""
-    lib = _LOADED.get("coarse_rank")
-    if lib is None:
-        lib = ctypes.CDLL(str(build("coarse_rank")))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.coarse_rank_launch.argtypes = [p, p, p, p, i, i, i, i, f, f, f, f, f, p]
-        lib.coarse_rank_launch.restype = ctypes.c_int
-        lib.coarse_rank_error_string.argtypes = [i]
-        lib.coarse_rank_error_string.restype = ctypes.c_char_p
-        _LOADED["coarse_rank"] = lib
-    return lib
+    return _load("coarse_rank", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P])
+
+
+def load_exact_rank() -> ctypes.CDLL:
+    """The exact-ranker library (``csrc/exact_rank.cu``), built on first use."""
+    return _load("exact_rank", [_P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _F, _F, _I,
+                                _I, _P])

@@ -6,22 +6,24 @@ reference's loop — score at the relaxed gate (2 x dist_thres), Kabsch fit of
 the correspondences, rescore, iterate while the count does not shrink — and
 stops on its own; a finished pose keeps its state while the others go on.
 
-Only the point-to-point path is ported.  Point-to-plane, the edge-only fit and
-the floor-gated point-to-line steps belong to the fog route and raise.
+The scene is one shared cloud ([N] fields, every pose scores all of it) or a
+batch of per-pose sub-clouds ([F, C] fields, the candidate-subset join).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from triplet_match_tpu_torch.core.transforms import weighted_kabsch
+from triplet_match_tpu_torch.core.transforms import (
+    gauss_newton_pose_step,
+    transform_points,
+    weighted_kabsch,
+)
 from triplet_match_tpu_torch.index.model import CompiledModel
 from triplet_match_tpu_torch.search.score import DenseCorrs, finish_find
-
-_FOG_ROUTE = ("point-to-plane, edges_only and point_to_line_at_floor belong to the fog "
-              "route, which is not ported yet (ROADMAP queue A)")
 
 
 class IcpResult(NamedTuple):
@@ -40,12 +42,10 @@ def icp_refine(model: CompiledModel, scene, tangent_mask, consumed, t0: torch.Te
                point_to_plane: bool = False, samples_on_all: bool = True) -> IcpResult:
     """Refine poses ``t0`` [F, 4, 4].
 
-    After the relaxed loop, ``tight_iterations`` extra Kabsch steps run at the
-    unrelaxed gate (``tight_polish``) and the correspondences are re-derived
-    at the relaxed gate.
+    After the relaxed loop, ``tight_iterations`` extra steps run at the
+    unrelaxed gate (``tight_polish``, Gauss-Newton with ``point_to_plane``)
+    and the correspondences are re-derived at the relaxed gate.
     """
-    if point_to_plane:
-        raise NotImplementedError(_FOG_ROUTE)
     relaxed = 2.0 * dist_thres
 
     def _ff(t, thres):
@@ -78,7 +78,8 @@ def icp_refine(model: CompiledModel, scene, tangent_mask, consumed, t0: torch.Te
     if tight_iterations > 0:
         t_best = tight_polish(model, scene, tangent_mask, consumed, t_best, dist_thres,
                               tight_iterations, weighted_distance=weighted_distance,
-                              negative_scores=negative_scores, samples_on_all=samples_on_all)
+                              negative_scores=negative_scores, point_to_plane=point_to_plane,
+                              samples_on_all=samples_on_all)
         corrs = _ff(t_best, relaxed)
     return IcpResult(t_best, corrs, it)
 
@@ -89,31 +90,52 @@ def tight_polish(model: CompiledModel, scene, tangent_mask, consumed, t0: torch.
                  samples_on_all: bool = True, orientation_weight: bool = False,
                  anneal: float = 1.0, edges_only: bool = False,
                  point_to_line_at_floor: bool = False) -> torch.Tensor:
-    """Kabsch steps at the unrelaxed gate with exact (LUT-seeded) corrs.
+    """Fitting steps at the unrelaxed gate with exact (LUT-seeded) corrs.
 
     Step i runs at dist_thres * max(anneal**i, 1/16); ``orientation_weight``
-    weights each corr by |scene_dir . model_dir| (impl/scene.hpp:430).  A
-    step with fewer than 3 corrs keeps the pose.  Changes only the reported
-    transform, never which matches are accepted.  t0 [F, 4, 4] -> [F, 4, 4].
+    weights each corr by |scene_dir . model_dir| (impl/scene.hpp:430).
+    ``edges_only`` replaces the tangent mask with the raw ``|tangent| > 0.7``
+    mask for the whole polish and fits each step on edge corrs, falling back
+    to all-point weights below 12 of them.  ``point_to_plane`` fits every
+    step, and ``point_to_line_at_floor`` the steps whose band is within 2x of
+    the 1/16 floor, with the hybrid Gauss-Newton step
+    (``gauss_newton_pose_step``), composed as ``upd @ t``.  A step with fewer
+    than 3 corrs keeps the pose.  Changes only the reported transform, never
+    which matches are accepted.  t0 [F, 4, 4] -> [F, 4, 4].
     """
-    if point_to_plane or edges_only or point_to_line_at_floor:
-        raise NotImplementedError(_FOG_ROUTE)
+    if edges_only:
+        tangent_mask = torch.linalg.vector_norm(scene.tangent, dim=-1) > 0.7
+        raw_edges = tangent_mask.to(torch.float32)
     t = t0
+    floor = np.float32(2.001) * np.float32(dist_thres) / np.float32(16.0)
     for i in range(iterations):
-        factor = max(float(torch.tensor(anneal, dtype=torch.float32) ** i), 1.0 / 16.0)
-        thres = float(torch.tensor(dist_thres, dtype=torch.float32) * factor)
-        corrs = finish_find(model, scene, tangent_mask, consumed, t, thres, exact=True,
+        factor = max(np.float32(anneal) ** np.float32(i), np.float32(1.0 / 16.0))
+        thres = np.float32(dist_thres) * np.float32(factor)
+        corrs = finish_find(model, scene, tangent_mask, consumed, t, float(thres), exact=True,
                             weighted_distance=weighted_distance,
                             negative_scores=negative_scores, samples_on_all=samples_on_all)
         w = corrs.valid.to(torch.float32)
+        if edges_only:
+            we = w * raw_edges
+            w = torch.where(we.sum(-1, keepdim=True) >= 12.0, we, w)
+        midx = corrs.model_idx
         if orientation_weight:
-            midx = corrs.model_idx
-            ref = torch.where(tangent_mask[:, None], scene.tangent, scene.normal)
+            ref = torch.where(tangent_mask[..., None], scene.tangent, scene.normal)
             tref = ref @ t[..., :3, :3].transpose(-1, -2)
             mtan = model.cloud.tangent[midx]
             is_tan = torch.linalg.vector_norm(mtan, dim=-1) > 0.7
             ref_n = torch.where(is_tan[..., None], mtan, model.cloud.normal[midx])
             w = w * (tref * ref_n).sum(-1).abs()
-        t_new = weighted_kabsch(scene.xyz, model.cloud.xyz[corrs.model_idx], w)
+        if point_to_plane or (point_to_line_at_floor and thres <= floor):
+            mtan = model.cloud.tangent[midx]
+            is_edge = torch.linalg.vector_norm(mtan, dim=-1) > 0.7
+            m_dir = torch.where(is_edge[..., None], mtan, model.cloud.normal[midx])
+            m_dir = m_dir / torch.clamp(torch.linalg.vector_norm(m_dir, dim=-1, keepdim=True),
+                                        min=1e-12)
+            upd = gauss_newton_pose_step(transform_points(t, scene.xyz), model.cloud.xyz[midx],
+                                         m_dir, is_edge, w)
+            t_new = upd @ t
+        else:
+            t_new = weighted_kabsch(scene.xyz, model.cloud.xyz[midx], w)
         t = _select(corrs.count >= 3, t_new, t)
     return t

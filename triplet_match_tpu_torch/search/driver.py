@@ -6,15 +6,17 @@ Mirrors the control flow of impl/scene.hpp:39-240:
   WHILE matches found:                                   impl/scene.hpp:70-95
     sample first/second pairs, query model,              impl/scene.hpp:242-353
     pose hypotheses (base_transform) + force_up gate,    impl/scene.hpp:315-319
-    rank hypotheses (two-phase coarse kernel),           impl/scene.hpp:326
-    promote finalists -> ICP,                            impl/scene.hpp:361-366,171
+    rank hypotheses (two-phase kernels B1 or B2),        impl/scene.hpp:326
+    promote finalists (prescreen) -> ICP,                impl/scene.hpp:361-366,171
     sort by corr count, greedy non-overlap acceptance,   impl/scene.hpp:193-237
     mask accepted scene points.                          impl/scene.hpp:87-93
 
 Each round scores a whole hypothesis batch ([B1, B2, Q] poses) at once; the
-only sequential state is the mask update between rounds.  The port covers the
-standard-density configuration: when the fog-density switch would fire, and
-for the multi-device meshes, ``find_all`` raises ``NotImplementedError``.
+only sequential state is the mask update between rounds.  A dense scene
+switches to the fog-density route (``fog_policy``): exact ranking, a wider
+funnel with a prescreen, edge-anchored ranking and polish, and a join over
+per-finalist candidate subsets.  The multi-device meshes are not ported:
+``mesh=`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ from triplet_match_tpu_torch.search.sampling import (
 )
 from triplet_match_tpu_torch.search.score import finish_find, normalize_score
 
-_FOG_ROUTE = "is part of the fog route, which is not ported yet (ROADMAP queue A)"
+_MESH = "the mesh-sharded rounds (parallel/) are not ported yet (ROADMAP queue A, A12)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,8 +117,7 @@ def prepare_scene(cloud: cl.PointCloud, policy: SearchPolicy = DEFAULT_POLICY, *
     smaller ones the brute-force pass over the whole cloud.
     """
     if mesh is not None:
-        raise NotImplementedError("mesh-sharded scene preparation (parallel/) is not ported "
-                                  "yet (ROADMAP queue A)")
+        raise NotImplementedError(_MESH)
     if cloud.capacity <= grid_threshold:
         return _prepare_scene_whole(cloud, policy)
     return _prepare_scene_grid(cloud, policy=policy)
@@ -130,6 +131,7 @@ class RoundResult(NamedTuple):
     count: torch.Tensor  # [F] int64 total corrs from ICP finish_find
     score: torch.Tensor  # [F] float32 signed score (unnormalized)
     hypotheses_scored: torch.Tensor  # 0-d int64
+    join_overflow: torch.Tensor  # 0-d int64, worst candidate overflow of the subset join
 
 
 def _rank_on_all(policy) -> bool:
@@ -200,30 +202,125 @@ def hypothesize_and_score(model: CompiledModel, prep: ScenePrep, consumed: torch
     return ts.reshape(-1, 4, 4), scores, firsts.idx, firsts.valid, hyp_ok.sum()
 
 
+def _auto_join_capacity(n_scene: int) -> int:
+    """Fog-switch default for ``policy.join_subset_capacity``: the power of
+    two of max(65536, N/16), at most N.  The in-grid candidate population of
+    a posed model is a few percent of a dense scene; an overflow is counted
+    exactly and published as ``join_overflow_max``."""
+    want = max(65536, n_scene // 16)
+    cap = 1 << (want - 1).bit_length()
+    return int(min(cap, n_scene))
+
+
+def _candidate_subset(model: CompiledModel, cloud, tangent_mask, consumed, ts, dist_thres,
+                      capacity: int, slack: float):
+    """Per-finalist candidate sub-scenes for the join's scene-sized passes.
+
+    A scene point can correspond to a posed model only if its transformed
+    position lands inside the voxel grid (every scoring surface gates on
+    ``voxel_query``'s in_bounds), so the points whose voxel coordinates fall
+    within the grid plus a slack border (``slack`` relaxed 2x gates, plus
+    1.5 voxels for ``voxel_query_exact``) are an exact eligibility superset
+    while the pose stays within the slack.  Each finalist keeps its first
+    ``capacity`` candidates in index order, compacted on the device by a
+    cumulative sum (no host sync).
+
+    Returns (sub_cloud, sub_tangent_mask, sub_consumed, idx, idx_valid,
+    n_candidates), each with a leading finalist dim; padding rows carry
+    index N, valid=False and consumed=True.  ``n_candidates`` above
+    ``capacity`` means the subset passes undercounted (the join overflow).
+    """
+    n = cloud.capacity
+    cap = int(min(int(capacity), n))
+    relaxed_w = model.resolution.to(torch.float32) * float(2.0 * _f32(dist_thres))
+    hi = torch.tensor(model.lut.shape, dtype=torch.float32, device=cloud.device) - 1.0
+    s_vox = relaxed_w * float(_f32(slack)) * torch.diagonal(model.to_voxel)[:3] + 1.5
+
+    m = model.to_voxel @ ts  # scene point -> voxel coordinates, one affine
+    v = cloud.xyz @ m[:, :3, :3].transpose(-1, -2) + m[:, None, :3, 3]
+    mask = ((v >= -s_vox) & (v <= hi + s_vox)).all(-1) & cloud.valid
+    slot = torch.cumsum(mask, dim=-1) - 1
+    slot = torch.where(mask & (slot < cap), slot, cap)  # overflow and misses -> dump column
+    idx = torch.full((ts.shape[0], cap + 1), n, dtype=torch.int64, device=ts.device)
+    ar = torch.arange(n, device=ts.device).expand_as(slot)
+    idx = idx.scatter(1, slot, ar)[:, :cap]
+    n_cand = mask.sum(-1)
+    idx_valid = idx < n
+    idxc = torch.clamp(idx, max=n - 1)
+    sub = cl.PointCloud(cloud.xyz[idxc], cloud.normal[idxc], cloud.tangent[idxc],
+                        cloud.valid[idxc] & idx_valid)
+    return sub, tangent_mask[idxc], consumed[idxc] | ~idx_valid, idx, idx_valid, n_cand
+
+
+def _scatter_corrs(idx, idx_valid, sub_valid, sub_midx, n: int):
+    """Scatter per-finalist subset correspondences back to scene shape
+    ([F, C] -> [F, N]); padding rows (index n) land in a dropped column."""
+    f = idx.shape[0]
+    full_v = torch.zeros((f, n + 1), dtype=torch.bool, device=idx.device)
+    full_m = torch.zeros((f, n + 1), dtype=sub_midx.dtype, device=idx.device)
+    full_v = full_v.scatter(1, idx, sub_valid & idx_valid)[:, :n]
+    full_m = full_m.scatter(1, idx, torch.where(idx_valid, sub_midx, 0))[:, :n]
+    return full_v, full_m
+
+
 def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_best, dist_thres,
                       model_match_factor, *, policy: SearchPolicy, max_icp_iterations: int):
-    """Relaxed ICP + greedy acceptance + acceptance-gated tight polish.
+    """Finalist prescreen + relaxed ICP + greedy acceptance + acceptance-gated
+    tight polish.
 
-    Returns (t_fin, accept, new_corr, model_idx, counts, scores, consumed').
-    The finalist prescreen and the candidate-subset join belong to the fog
-    route and raise.
+    With ``finalist_prescreen`` below the funnel width, one full relaxed-count
+    pass per finalist (ranking eligibility, ``_rank_on_all``) keeps a stable
+    top-``finalist_prescreen``.  With ``join_subset_capacity`` below the
+    scene size, every scene-sized pass runs on per-finalist candidate
+    subsets, regathered at each phase boundary.  Returns (t_fin, accept,
+    new_corr, model_idx, counts, scores, consumed', join_overflow), the last
+    the worst candidate overflow of the subset passes (0 when exact or off).
     """
     n_scene = cloud.capacity
-    if 0 < int(policy.finalist_prescreen) < t_best.shape[0]:
-        raise NotImplementedError(f"the finalist prescreen {_FOG_ROUTE}")
-    if 0 < int(policy.join_subset_capacity or 0) < n_scene:
-        raise NotImplementedError(f"the candidate-subset join {_FOG_ROUTE}")
+    cap = int(policy.join_subset_capacity or 0)
+    use_subset = 0 < cap < n_scene
+    join_overflow = torch.zeros((), dtype=torch.int64, device=t_best.device)
+
+    def subset(ts):
+        return _candidate_subset(model, cloud, tangent_mask, consumed, ts, dist_thres, cap,
+                                 policy.join_subset_slack)
+
+    keep = int(policy.finalist_prescreen)
+    if 0 < keep < t_best.shape[0]:
+        def pre_count(t, sc, tm, co):
+            return finish_find(model, sc, tm, co, t, 2.0 * dist_thres,
+                               weighted_distance=policy.weighted_distance,
+                               negative_scores=policy.negative_scores,
+                               samples_on_all=_rank_on_all(policy)).count
+
+        if use_subset:
+            sub, stm, scons, _, _, n_cand = subset(t_best)
+            pre = pre_count(t_best, sub, stm, scons)
+            join_overflow = torch.maximum(join_overflow, n_cand.max() - cap)
+        else:
+            pre = pre_count(t_best, cloud, tangent_mask, consumed)
+        # ties break toward the higher-ranked hypothesis, as lax.top_k does
+        t_best = t_best[torch.sort(pre, descending=True, stable=True)[1][:keep]]
 
     # reference-faithful relaxed ICP only; the tight polish runs after (and
     # gated on) acceptance
-    icp = icp_refine(model, cloud, tangent_mask, consumed, t_best, dist_thres,
-                     max_icp_iterations, tight_iterations=0,
-                     weighted_distance=policy.weighted_distance,
-                     negative_scores=policy.negative_scores,
-                     point_to_plane=policy.icp_point_to_plane,
-                     samples_on_all=policy.samples_on_all)
-    corr_valid, corr_midx = icp.corrs.valid, icp.corrs.model_idx
-    t_fin, fin_counts, fin_scores = icp.transform, icp.corrs.count, icp.corrs.score
+    def icp(t, sc, tm, co):
+        return icp_refine(model, sc, tm, co, t, dist_thres, max_icp_iterations,
+                          tight_iterations=0, weighted_distance=policy.weighted_distance,
+                          negative_scores=policy.negative_scores,
+                          point_to_plane=policy.icp_point_to_plane,
+                          samples_on_all=policy.samples_on_all)
+
+    if use_subset:
+        sub, stm, scons, s_idx, s_ivalid, n_cand = subset(t_best)
+        res = icp(t_best, sub, stm, scons)
+        join_overflow = torch.maximum(join_overflow, n_cand.max() - cap)
+        corr_valid, corr_midx = _scatter_corrs(s_idx, s_ivalid, res.corrs.valid,
+                                               res.corrs.model_idx, n_scene)
+    else:
+        res = icp(t_best, cloud, tangent_mask, consumed)
+        corr_valid, corr_midx = res.corrs.valid, res.corrs.model_idx
+    t_fin, fin_counts, fin_scores = res.transform, res.corrs.count, res.corrs.score
 
     # --- greedy acceptance (impl/scene.hpp:193-237) ---
     order = torch.sort(-fin_counts, stable=True)[1]
@@ -248,7 +345,8 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
         t_fin, new_corr, corr_midx, fin_counts, fin_scores, consumed_next = polish_accepted(
             model, cloud, tangent_mask, consumed, dist_thres, policy, t_fin, accept, order,
             acc_ord, inv_order)
-    return t_fin, accept, new_corr, corr_midx, fin_counts, fin_scores, consumed_next
+    return (t_fin, accept, new_corr, corr_midx, fin_counts, fin_scores, consumed_next,
+            join_overflow)
 
 
 def polish_accepted(model, cloud, tangent_mask, consumed, dist_thres, policy, t_fin, accept,
@@ -256,28 +354,50 @@ def polish_accepted(model, cloud, tangent_mask, consumed, dist_thres, policy, t_
     """Tight-polish every finalist of an accepting round, then re-derive the
     reported corrs, counts, scores and point claims at the polished poses
     (same order, frozen accept decisions).  The acceptance decision stays at
-    the unpolished pose (impl/scene.hpp:193-237)."""
-    t_pol = tight_polish(
-        model, cloud, tangent_mask, consumed, t_fin, dist_thres,
-        iterations=policy.tight_icp_iterations, orientation_weight=policy.tight_orientation_weight,
-        anneal=policy.tight_anneal, edges_only=bool(policy.tight_edges_only),
-        weighted_distance=policy.weighted_distance, negative_scores=policy.negative_scores,
-        point_to_plane=policy.icp_point_to_plane,
-        point_to_line_at_floor=bool(policy.tight_point_to_line),
-        samples_on_all=policy.samples_on_all)
-    corrs = finish_find(model, cloud, tangent_mask, consumed, t_pol, 2.0 * dist_thres,
-                        weighted_distance=policy.weighted_distance,
-                        negative_scores=policy.negative_scores,
-                        samples_on_all=policy.samples_on_all)
+    the unpolished pose (impl/scene.hpp:193-237).  Under the subset join the
+    polish runs on candidates at the relaxed-ICP poses and the claim pass on
+    candidates at the polished poses."""
+    n_scene = cloud.capacity
+    cap = int(policy.join_subset_capacity or 0)
+
+    def polish(t, sc, tm, co):
+        return tight_polish(
+            model, sc, tm, co, t, dist_thres, iterations=policy.tight_icp_iterations,
+            orientation_weight=policy.tight_orientation_weight, anneal=policy.tight_anneal,
+            edges_only=bool(policy.tight_edges_only),
+            weighted_distance=policy.weighted_distance, negative_scores=policy.negative_scores,
+            point_to_plane=policy.icp_point_to_plane,
+            point_to_line_at_floor=bool(policy.tight_point_to_line),
+            samples_on_all=policy.samples_on_all)
+
+    def claim_pass(t, sc, tm, co):
+        return finish_find(model, sc, tm, co, t, 2.0 * dist_thres,
+                           weighted_distance=policy.weighted_distance,
+                           negative_scores=policy.negative_scores,
+                           samples_on_all=policy.samples_on_all)
+
+    if 0 < cap < n_scene:
+        sub, stm, scons, _, _, _ = _candidate_subset(model, cloud, tangent_mask, consumed, t_fin,
+                                                     dist_thres, cap, policy.join_subset_slack)
+        t_pol = polish(t_fin, sub, stm, scons)
+        sub, stm, scons, p_idx, p_ivalid, _ = _candidate_subset(
+            model, cloud, tangent_mask, consumed, t_pol, dist_thres, cap,
+            policy.join_subset_slack)
+        corrs = claim_pass(t_pol, sub, stm, scons)
+        corr_v, corr_m = _scatter_corrs(p_idx, p_ivalid, corrs.valid, corrs.model_idx, n_scene)
+    else:
+        t_pol = polish(t_fin, cloud, tangent_mask, consumed)
+        corrs = claim_pass(t_pol, cloud, tangent_mask, consumed)
+        corr_v, corr_m = corrs.valid, corrs.model_idx
     used = consumed
     new_ord = []
     for f, ok in zip(order.tolist(), acc_ord):
-        cv = corrs.valid[f]
+        cv = corr_v[f]
         new_ord.append(cv & ~used)
         used = torch.where(ok, used | cv, used)
     new_c = torch.stack(new_ord)[inv_order]
     consumed2 = consumed | (new_c & accept[:, None]).any(0)
-    return t_pol, new_c, corrs.model_idx, corrs.count, corrs.score, consumed2
+    return t_pol, new_c, corr_m, corrs.count, corrs.score, consumed2
 
 
 def finalize_round(model: CompiledModel, prep: ScenePrep, consumed, fp_mask, t_best, first_idx,
@@ -287,11 +407,12 @@ def finalize_round(model: CompiledModel, prep: ScenePrep, consumed, fp_mask, t_b
     Returns (RoundResult, consumed', fp')."""
     fp_next = fp_mask.clone()
     fp_next[first_idx[first_valid]] = True
-    t_fin, accept, new_corr, corr_midx, counts, scores, consumed_next = accept_and_polish(
+    (t_fin, accept, new_corr, corr_midx, counts, scores, consumed_next,
+     join_overflow) = accept_and_polish(
         model, prep.cloud, prep.tangent_mask, consumed, t_best, dist_thres, model_match_factor,
         policy=policy, max_icp_iterations=max_icp_iterations)
-    return (RoundResult(t_fin, accept, new_corr, corr_midx, counts, scores, n_hyp),
-            consumed_next, fp_next)
+    return (RoundResult(t_fin, accept, new_corr, corr_midx, counts, scores, n_hyp,
+                        join_overflow), consumed_next, fp_next)
 
 
 def search_round(model: CompiledModel, prep: ScenePrep, consumed, fp_mask, draws: RoundDraws,
@@ -397,6 +518,46 @@ def adaptive_policy(prep: ScenePrep, model: CompiledModel,
     return policy, ball_q
 
 
+def fog_policy(policy: SearchPolicy, prep: ScenePrep,
+               model: CompiledModel) -> tuple[SearchPolicy, ScenePrep]:
+    """The policy and scene preparation of the fog-density route.
+
+    A fog-dominated diameter ball blurs any coverage-radius block ranking, so
+    both ranking phases go exact (B2 on the compact blocks, keep 1/8, full-K
+    phase 2; full mode keeps its configured stride), the finalist funnel
+    widens to ``adaptive_finalists`` with a prescreen back to ``finalists``,
+    and, when the model has edge points, ranking and the tight polish run on
+    edge corrs (the polish point-to-line at the band's floor) and the scene's
+    edges come from its raw tangents (``|tangent| > tangent_norm_threshold``).
+    The join gathers candidate subsets (``_auto_join_capacity``).  Explicit
+    policy values win over each automatic one.
+    """
+    has_edges = int(model.n_edge) > 0
+
+    def auto(value):
+        return value if value is not None else has_edges
+
+    policy = dataclasses.replace(
+        policy, two_phase_coarse_model=False, two_phase_fine_coarse=False,
+        two_phase_fine_stride=(policy.two_phase_fine_stride if policy.ranking_mode == "full"
+                               else 1),
+        two_phase_keep_frac=min(policy.two_phase_keep_frac, 8),
+        finalists=max(policy.finalists, policy.adaptive_finalists),
+        finalist_prescreen=policy.finalist_prescreen or policy.finalists,
+        rank_edges_only=auto(policy.rank_edges_only),
+        tight_edges_only=auto(policy.tight_edges_only),
+        tight_point_to_line=auto(policy.tight_point_to_line),
+        join_subset_capacity=(policy.join_subset_capacity
+                              if policy.join_subset_capacity is not None
+                              else _auto_join_capacity(prep.cloud.capacity)),
+        scene_raw_tangents=auto(policy.scene_raw_tangents))
+    if policy.scene_raw_tangents:
+        raw = ((torch.linalg.vector_norm(prep.cloud.tangent, dim=-1)
+                > policy.tangent_norm_threshold) & prep.cloud.valid)
+        prep = ScenePrep(cloud=prep.cloud, tangent_mask=raw, n_edge=raw.sum())
+    return policy, prep
+
+
 LAST_SEARCH_STATS: dict = {}
 
 
@@ -431,22 +592,24 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
     device but not the JAX package's (threefry) samples.  Runs under
     ``strict_fp32``.
 
+    When the ball population q95 exceeds ``fine_full_rescore_ratio *
+    score_neighbors`` the fog-density switch fires (``fog_policy``).
+
     ``LAST_SEARCH_STATS`` gets the JAX package's keys (without its
-    executable-cache and profiler entries) plus ``coarse_kernel_launches``.
-    Raises ``NotImplementedError`` for ``mesh=``, ``scorer="jnp"`` and when
-    the fog-density switch would fire.
+    executable-cache and profiler entries) plus ``coarse_kernel_launches``
+    and ``exact_kernel_launches``.  Raises ``NotImplementedError`` for
+    ``mesh=`` and ``scorer="jnp"``.
     """
     if mesh is not None:
-        raise NotImplementedError("mesh-sharded search (parallel/) is not ported yet "
-                                  "(ROADMAP queue A)")
+        raise NotImplementedError(_MESH)
     if policy.scorer not in ("auto", "pallas"):
-        raise NotImplementedError(f"scorer={policy.scorer!r}: the port ranks through the "
-                                  "coarse kernel only")
+        raise NotImplementedError(f"scorer={policy.scorer!r}: the port ranks through its "
+                                  "kernels only")
     device = torch.device(device) if device is not None else model.cloud.device
     if dist_thres is None:
         dist_thres = policy.corr_dist_factor
     gen = generator if generator is not None else torch.Generator().manual_seed(seed)
-    launches0 = sk.COARSE_RANK.launches
+    launches0, exact0 = sk.COARSE_RANK.launches, sk.EXACT_RANK.launches
     with strict_fp32():
         if prep is None:
             prep = prepare_scene(scene_cloud.to(device), policy)
@@ -459,10 +622,17 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
         if (policy.adaptive_fine_rescore and policy.two_phase_scoring
                 and policy.two_phase_fine_coarse and ball_q is not None
                 and ball_q > policy.fine_full_rescore_ratio * policy.score_neighbors):
-            raise NotImplementedError(
-                f"fog-density switch: ball population q95 {ball_q:.1f} > "
-                f"{policy.fine_full_rescore_ratio} x {policy.score_neighbors}; the exact "
-                f"full-pack routing needs kernel B2 and {_FOG_ROUTE}")
+            policy, prep = fog_policy(policy, prep, model)
+            if policy.scene_raw_tangents:
+                stats["scene_raw_tangents"] = True
+                stats["scene_n_edge_raw"] = int(prep.n_edge)
+            stats["fine_rescore_full"] = True
+            stats["finalist_prescreen"] = int(policy.finalist_prescreen)
+            stats["rank_edges_only"] = bool(policy.rank_edges_only)
+            stats["tight_edges_only"] = bool(policy.tight_edges_only)
+            stats["tight_point_to_line"] = bool(policy.tight_point_to_line)
+            stats["join_subset_capacity"] = int(policy.join_subset_capacity or 0)
+            stats["finalist_funnel"] = int(policy.finalists)
         if ball_q is not None:
             stats["ball_population_q95"] = int(ball_q)
         mpack = sk.pack_model_cached(model, coarse_points=policy.coarse_model_points,
@@ -490,6 +660,7 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
             if round_s:
                 LAST_SEARCH_STATS["round_ms_avg"] = 1000.0 * float(np.mean(round_s))
             LAST_SEARCH_STATS["coarse_kernel_launches"] = sk.COARSE_RANK.launches - launches0
+            LAST_SEARCH_STATS["exact_kernel_launches"] = sk.EXACT_RANK.launches - exact0
 
         matches: list[Match] = []
         rnd = 0
@@ -517,6 +688,8 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
                 stats["hypotheses_scored"] += int(res.hypotheses_scored)
                 stats["finalists"] += accept.shape[0]
                 stats["accepted"] += int(accept.sum())
+                stats["join_overflow_max"] = max(stats["join_overflow_max"],
+                                                 int(res.join_overflow))
                 if not accept.any():
                     continue
                 phase_accepted = True

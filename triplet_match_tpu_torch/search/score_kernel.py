@@ -2,18 +2,23 @@
 
 Hypotheses minted from one first point share that point's K-point scene
 neighbourhood, staged once per *group* as [8, K] channel planes.  Phase 1
-ranks every pose on a strided neighbourhood subsample against a coarse
-256-representative 4-D model block; the per-group top 1/keep_frac survive to
-phase 2, which re-ranks them against a 512-representative block with the
-strict count as the primary key (impl/scene.hpp:421-425, 492-506 batched).
+ranks every pose on a strided neighbourhood subsample; the per-group top
+1/keep_frac survive to phase 2, which re-ranks them (impl/scene.hpp:421-425,
+492-506 batched).  At standard density both phases sweep 4-D representative
+blocks (256, then 512 with the strict count as the primary key); on the
+fog-density route both take exact distances to the whole model.
 
-Both phases run one kernel, ``score_groups_coarse`` (TPU kernel B1,
-``score_pallas.py:_coarse_kernel``).  On a CUDA tensor it launches the
-hand-written Hopper kernel ``csrc/coarse_rank.cu``; on a CPU tensor it runs
-``score_groups_coarse_plain``, the plain PyTorch version of the same
-arithmetic.  Only the standard-density configuration is ported: the exact
-full-pack kernel (B2/B3) and the linearised coarse kernel (B4) are still to
-port, and the routes that need them raise ``NotImplementedError``.
+Two kernels rank.  ``score_groups_coarse`` (TPU kernel B1,
+``score_pallas.py:_coarse_kernel``) sweeps a 4-D representative block; the
+standard-density configuration runs it in both phases.  ``score_groups_exact``
+(TPU kernel B2, ``score_pallas.py:_kernel`` in count mode) takes the exact
+nearest-neighbour distance to the whole compact edge and surface blocks; the
+fog-density route runs it in both phases, and the single-phase route runs it
+alone.  On a CUDA tensor each launches its hand-written Hopper kernel
+(``csrc/coarse_rank.cu``, ``csrc/exact_rank.cu``); on a CPU tensor it runs its
+plain PyTorch version of the same arithmetic.  The orientation-weighted full
+mode (B3) and the linearised coarse kernel (B4) are still to port, and the
+routes that need them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from triplet_match_tpu_torch.kernels.build import load_coarse_rank
+from triplet_match_tpu_torch.kernels.build import load_coarse_rank, load_exact_rank
 
 _BIG = np.float32(1.0e12)
 _FAR = 1.0e6  # padding coordinate for invalid points
@@ -38,8 +43,10 @@ def _round_up(x: int, m: int) -> int:
 class ModelPack(NamedTuple):
     """Model arrays staged for the ranking kernels (built once per model).
 
-    Same layout as the JAX ``ModelPack``: ``channels_d``/``channels_w``/
-    ``md_edge``/``md_surf`` feed the exact kernels B2/B3 (not yet ported);
+    Same layout as the JAX ``ModelPack``: ``md_edge``/``md_surf`` are the
+    compact blocks [x, y, z, |p|^2, 0, 0, 0, 0] that B2 sweeps (their first
+    ``n_edge_cols``/``n_surf_cols`` columns are model points, the rest FAR
+    padding); ``channels_d``/``channels_w`` feed B3 (not yet ported);
     ``md_coarse``/``md_fine`` are the 4-D representative blocks
     [x, y, z, w(kind), |p4|^2_hi, |p4|^2_lo, 1, 1] that B1 sweeps.  The
     scalars are python floats (float32 values).
@@ -56,6 +63,8 @@ class ModelPack(NamedTuple):
     coarse_slack: float
     md_fine: torch.Tensor  # [8, NfP]
     fine_slack: float
+    n_edge_cols: int  # model points in md_edge
+    n_surf_cols: int  # model points in md_surf
 
 
 def _coverage_subsample(xyz, valid, cap: int):
@@ -210,7 +219,7 @@ def pack_model(model, max_points: int = 4096, coarse_points: int = 512,
     return ModelPack(t(ch_d), t(ch_w), n_pad, t(center.astype(np.float32)),
                      t(block(edge_pts)), t(block(surf_pts)), t(md_coarse),
                      float(np.float32(off)), float(np.float32(slack_c)), t(md_fine),
-                     float(np.float32(slack_f)))
+                     float(np.float32(slack_f)), int(edge_pts.shape[0]), int(surf_pts.shape[0]))
 
 
 def group_channels(scene, tangent_mask, consumed, nbr_idx, nbr_valid,
@@ -435,6 +444,212 @@ def score_groups_coarse(mpack: ModelPack, groups: torch.Tensor, poses: torch.Ten
     return score_groups_coarse_plain(groups, poses, md, t2, mpack.kind_off, t2s, w_inf, w_str)
 
 
+# ---------------------------------------------------------------------------
+# B2: the exact two-minimum count ranker
+# ---------------------------------------------------------------------------
+
+EXACT_RANK = _LaunchCounter()
+
+_B3 = "ranking_mode='full' needs the orientation-weighted kernel B3 (ROADMAP queue B, B3)"
+
+
+def _inv2t(thres2: float) -> float:
+    """1 / (2 thres) in float32, as the TPU kernel's params: 0.5 / sqrt(max(t2, 1e-30))."""
+    t2 = np.maximum(np.float32(thres2), np.float32(1e-30))
+    return float(np.float32(0.5) / np.sqrt(t2))
+
+
+def exact_blocks(mpack: ModelPack) -> tuple[torch.Tensor, torch.Tensor]:
+    """The compact edge and surface blocks cut to their model points (views).
+
+    The FAR padding columns of a block can never be an eligible point's
+    nearest neighbour, so B2 sweeps only real columns; a block without model
+    points keeps one FAR column, which gates as no neighbour.
+    """
+    return (mpack.md_edge[:, :max(mpack.n_edge_cols, 1)],
+            mpack.md_surf[:, :max(mpack.n_surf_cols, 1)])
+
+
+def _block_min(a: list, block: torch.Tensor) -> torch.Tensor:
+    """Per-point min over a block's columns of E = -2 tp . m + |m|^2, in the
+    TPU kernel's order: the channel product as a fused multiply-add chain
+    (x, y, z), then |m|^2 added.  a: [-2tx, -2ty, -2tz], each [M, Hg]."""
+    a0 = a[0][..., None]
+    a1, a2 = a[1][..., None].double(), a[2][..., None].double()
+    emin = None
+    for r0 in range(0, block.shape[1], _PLAIN_REP_CHUNK):
+        m = block[:, r0:r0 + _PLAIN_REP_CHUNK]
+        e = a0 * m[0]
+        e = (a1 * m[1].double() + e).float()  # fused multiply-add, see _fma
+        e = (a2 * m[2].double() + e).float()
+        e = (e + m[3]).amin(-1)
+        emin = e if emin is None else torch.minimum(emin, e)
+    return emin
+
+
+def score_groups_exact_plain(groups: torch.Tensor, poses: torch.Tensor, md_edge: torch.Tensor,
+                             md_surf: torch.Tensor, thres2: float, inv2t: float,
+                             weighted: bool = False,
+                             negative: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the exact count ranker, in the TPU kernel's
+    order of float32 operations.
+
+    groups [G, 8, K]; poses [G, Hg, 16] already centre-shifted; md_edge
+    [8, Ne] and md_surf [8, Ns] compact blocks.  Per pose and eligible point:
+    tp = R p + t, d2 to each block = |tp|^2 + min_m(-2 tp . m + |m|^2), and
+    the point counts when its own-kind d2 is within ``thres2`` and no larger
+    than the other kind's.  ``weighted`` scores exp(-dk * inv2t) per counted
+    point; ``negative`` subtracts exp(-do * inv2t) (or 1) per eligible point
+    whose other-kind d2 is within the gate and smaller.  Ineligible points
+    add nothing, so only eligible ones are evaluated.  Returns (score [G, Hg]
+    float32, count [G, Hg] int32); without either knob the score is the count.
+    """
+    g, _, k = groups.shape
+    hg = poses.shape[1]
+    gi, ki = (groups[:, 4] > 0.5).nonzero(as_tuple=True)
+    pts = groups[gi, :, ki]  # [M, 8] eligible points, group-major
+    count = torch.zeros((g, hg), dtype=torch.int32, device=groups.device)
+    pos = torch.zeros((g, hg), dtype=torch.float64, device=groups.device)
+    neg = torch.zeros_like(pos)
+    mc = max(1, _PLAIN_MAX_ELEMS // max(hg * _PLAIN_REP_CHUNK, 1))
+    for s in range(0, pts.shape[0], mc):
+        p, gs = pts[s:s + mc], gi[s:s + mc]
+        q = [poses[gs, :, i] for i in range(12)]  # [mc, Hg]
+        px, py, pz = p[:, 0, None], p[:, 1, None], p[:, 2, None]
+        tp = [_fma(q[3 * i + 2], pz, _fma(q[3 * i], px, q[3 * i + 1] * py)) + q[9 + i]
+              for i in range(3)]
+        tp2 = _fma(tp[2], tp[2], _fma(tp[0], tp[0], tp[1] * tp[1]))
+        a = [-2.0 * t for t in tp]
+        d2_e = tp2 + _block_min(a, md_edge)
+        d2_s = tp2 + _block_min(a, md_surf)
+        kind = p[:, 3, None] > 0.5
+        dk = torch.where(kind, d2_e, d2_s)
+        do = torch.where(kind, d2_s, d2_e)
+        ok = (dk <= thres2) & (dk <= do)
+        count.index_add_(0, gs, ok.to(torch.int32))
+        if weighted or negative:
+            w_pos = torch.exp(-dk * inv2t) if weighted else torch.ones_like(dk)
+            pos.index_add_(0, gs, torch.where(ok, w_pos, 0.0).double())
+            if negative:
+                wrong = (do <= thres2) & (do < dk)
+                w_neg = torch.exp(-do * inv2t) if weighted else torch.ones_like(do)
+                neg.index_add_(0, gs, torch.where(wrong, w_neg, 0.0).double())
+    score = (pos - neg).float() if (weighted or negative) else count.float()
+    return score, count
+
+
+def check_exact_parity(got: tuple, ref: tuple, groups: torch.Tensor, poses: torch.Tensor,
+                       md_edge: torch.Tensor, md_surf: torch.Tensor,
+                       thres2: float) -> tuple[float, int]:
+    """Hold two exact rankings (score, count) of the same inputs to the B2
+    parity contract.
+
+    Counts must agree exactly, except that a pose may differ by as many
+    points as it has eligible points whose float64 squared distance lies
+    within 1e-5 * thres2 of the gate, or of the other kind's distance: near
+    a gate, float32 sums taken in different orders may round to either side.
+    Scores of poses without such points agree within 1e-5 relative (at least
+    1e-5 absolute): the weighted terms are summed in different orders and
+    ``expf`` differs from another exp in the last ulp.  ``poses`` are
+    centre-shifted kernel rows; the blocks are those the rankings swept.
+    Raises AssertionError; returns (max |score difference|, number of poses
+    excused by near-gate points).
+    """
+    gs, gc = got[0].double().cpu(), got[1].long().cpu()
+    rs, rc = ref[0].double().cpu(), ref[1].long().cpu()
+    cdiff = (gc - rc).abs()
+    sdiff = (gs - rs).abs()
+    bad = (cdiff > 0) | (sdiff > 1e-5 * torch.clamp(rs.abs(), min=1.0))
+    be, bs = md_edge.double().cpu(), md_surf.double().cpu()
+    excused = 0
+    for g, h in bad.nonzero().tolist():
+        q = poses[g, h].double().cpu()
+        sc = groups[g].double().cpu()
+        el = sc[4] > 0.5
+        p = sc[:3, el].T @ q[:9].reshape(3, 3).T + q[9:12]
+        d2e = ((p[:, None, :] - be[:3].T[None]) ** 2).sum(-1).min(1).values
+        d2s = ((p[:, None, :] - bs[:3].T[None]) ** 2).sum(-1).min(1).values
+        tol = 1e-5 * thres2
+        near = (((d2e - thres2).abs() <= tol) | ((d2s - thres2).abs() <= tol)
+                | ((d2e - d2s).abs() <= tol))
+        if int(cdiff[g, h]) > int(near.sum()) or int(near.sum()) == 0:
+            raise AssertionError(f"pose ({g}, {h}): score {float(gs[g, h])} vs {float(rs[g, h])}, "
+                                 f"count {int(gc[g, h])} vs {int(rc[g, h])} with "
+                                 f"{int(near.sum())} near-gate points")
+        excused += 1
+    return (float(sdiff.max()) if sdiff.numel() else 0.0), excused
+
+
+def _exact_launch(groups, poses, md_edge, md_surf, thres2, inv2t, weighted, negative):
+    """Launch ``csrc/exact_rank.cu`` on the current stream (CUDA tensors only)."""
+    for name, t, dims in (("groups", groups, 3), ("poses", poses, 3), ("md_edge", md_edge, 2),
+                          ("md_surf", md_surf, 2)):
+        if t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != dims:
+            raise ValueError(f"{name}: need a float32 CUDA tensor of rank {dims}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    g, ch, k = groups.shape
+    hg = poses.shape[1]
+    if ch != 8 or poses.shape != (g, hg, 16) or md_edge.shape[0] < 4 or md_surf.shape[0] < 4:
+        raise ValueError(f"shapes groups {tuple(groups.shape)} poses {tuple(poses.shape)} "
+                         f"md_edge {tuple(md_edge.shape)} md_surf {tuple(md_surf.shape)}")
+    if md_edge.stride(1) != 1 or md_surf.stride(1) != 1:
+        raise ValueError("model blocks need unit column stride")
+    if not (groups.device == poses.device == md_edge.device == md_surf.device):
+        raise ValueError("groups, poses and blocks must share one device")
+    lib = load_exact_rank()
+    groups, poses = groups.contiguous(), poses.contiguous()
+    score = torch.empty((g, hg), dtype=torch.float32, device=groups.device)
+    count = torch.empty((g, hg), dtype=torch.int32, device=groups.device)
+    if score.numel() == 0:
+        return score, count
+    stream = torch.cuda.current_stream(groups.device).cuda_stream
+    err = lib.exact_rank_launch(
+        groups.data_ptr(), poses.data_ptr(), md_edge.data_ptr(), md_edge.shape[1],
+        md_edge.stride(0), md_surf.data_ptr(), md_surf.shape[1], md_surf.stride(0),
+        score.data_ptr(), count.data_ptr(), g, hg, k, ctypes.c_float(thres2),
+        ctypes.c_float(inv2t), int(weighted), int(negative), stream)
+    if err != 0:
+        raise RuntimeError("exact_rank kernel launch failed: "
+                           f"{lib.exact_rank_error_string(err).decode()}")
+    EXACT_RANK.launches += 1
+    return score, count
+
+
+def score_groups_exact(mpack: ModelPack, groups: torch.Tensor, poses: torch.Tensor,
+                       dist_thres2, *, mode: str = "count", weighted_distance: bool = False,
+                       negative_scores: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact-NN ranking of all G*Hg poses against the compact edge and surface
+    blocks (TPU kernel B2, ``score_groups_pallas`` in count mode).
+
+    groups [G, 8, K]; poses [G, Hg, 16] (``poses_to_rows`` layout, shifted
+    here by ``-mpack.center``).  Returns (score [G, Hg] float32, count
+    [G, Hg] int32): the score is the count, or with ``weighted_distance`` /
+    ``negative_scores`` the weighted/signed sum (impl/scene.hpp:468-475),
+    while the count stays the plain correspondence count.  A CUDA tensor runs
+    the Hopper kernel, a CPU tensor the plain version; ``mode="full"`` needs
+    kernel B3 and raises.
+    """
+    if mode != "count":
+        raise NotImplementedError(_B3)
+    t2 = _f32(dist_thres2)
+    inv2t = _inv2t(t2)
+    md_edge, md_surf = exact_blocks(mpack)
+    poses = poses.clone()
+    poses[..., 9:12] -= mpack.center
+    if groups.device.type == "cuda":
+        return _exact_launch(groups, poses, md_edge, md_surf, t2, inv2t, weighted_distance,
+                             negative_scores)
+    if groups.device.type != "cpu":
+        raise ValueError(f"no exact ranker for device {groups.device}")
+    return score_groups_exact_plain(groups, poses, md_edge, md_surf, t2, inv2t,
+                                    weighted_distance, negative_scores)
+
+
+# ---------------------------------------------------------------------------
+# the ranking routes
+# ---------------------------------------------------------------------------
+
+
 def _inflate(thres2, slack: float) -> float:
     s = np.sqrt(np.float32(thres2)) + np.float32(slack)
     return float(np.float32(s * s))
@@ -450,64 +665,85 @@ def score_groups_two_phase(mpack: ModelPack, groups: torch.Tensor, poses: torch.
                            dist_thres2, ok: torch.Tensor | None = None, *, mode: str = "count",
                            pose_tile: int = 8, coarse_stride: int = 8, keep_frac: int = 32,
                            coarse_model: bool = True, fine_stride: int = 1,
+                           weighted_distance: bool = False, negative_scores: bool = False,
                            coarse_linear: bool = False, fine_coarse: bool = False,
                            fine_strict: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Early-drop analog: rank every pose on the strided subsample against
-    the coarse block, keep the per-group top 1/keep_frac (at least
-    ``pose_tile``), re-rank the survivors against the fine block.
+    """Early-drop analog: rank every pose on the strided subsample, keep the
+    per-group top 1/keep_frac (at least ``pose_tile``), re-rank the survivors.
 
-    Only the ``fine_coarse`` count-mode route with the coarse-model phase 1
-    is ported; the others need kernels B2-B4 and raise.  Invalid hypotheses
-    (``ok`` False) rank at -1 before the keep, so they never take a slot a
-    valid pose needs; dropped poses score -1.  Returns (scores, counts)
-    [G, Hg].
+    Phase 1 sweeps the coarse 4-D block at the slack-inflated gate (B1,
+    ``coarse_model``) or the exact compact blocks at the strict gate (B2).
+    Phase 2 sweeps the fine 4-D block (B1, ``fine_coarse`` in count mode
+    without the weighted/negative knobs) or the exact blocks (B2, with both
+    knobs passed through).  Invalid hypotheses (``ok`` False) rank at -1
+    before the keep, so they never take a slot a valid pose needs; dropped
+    poses score -1, or -BIG under ``negative_scores``, whose signed scores
+    can fall below -1.  ``mode="full"`` (B3) and ``coarse_linear`` (B4)
+    raise.  Returns (scores, counts) [G, Hg].
     """
-    if not coarse_model or not fine_coarse or mode != "count":
-        raise NotImplementedError(
-            "two-phase ranking without the coarse and fine 4-D blocks needs the exact "
-            "full-pack kernel (ROADMAP queue B, B2/B3)")
+    if mode != "count":
+        raise NotImplementedError(_B3)
     if coarse_linear:
-        raise NotImplementedError("the linearised coarse kernel is not ported (ROADMAP queue B, B4)")
+        raise NotImplementedError(
+            "the linearised coarse kernel is not ported (ROADMAP queue B, B4)")
     g, hg = poses.shape[:2]
     keep = two_phase_keep(hg, keep_frac, pose_tile)
     coarse = groups[:, :, ::coarse_stride].contiguous()
-    s1 = score_groups_coarse(mpack, coarse, poses, _inflate(dist_thres2, mpack.coarse_slack),
-                             dist_thres2)
+    if coarse_model:
+        s1 = score_groups_coarse(mpack, coarse, poses, _inflate(dist_thres2, mpack.coarse_slack),
+                                 dist_thres2)
+    else:
+        s1, _ = score_groups_exact(mpack, coarse, poses, dist_thres2)
     if ok is not None:
         s1 = torch.where(ok, s1, -1.0)
     # stable descending sort: equal scores keep index order, as lax.top_k does
     kept = torch.sort(s1, dim=1, descending=True, stable=True)[1][:, :keep]
     poses_kept = torch.gather(poses, 1, kept[..., None].expand(-1, -1, poses.shape[2]))
     fine_groups = groups if fine_stride == 1 else groups[:, :, ::fine_stride].contiguous()
-    s2 = score_groups_coarse(mpack, fine_groups, poses_kept,
-                             _inflate(dist_thres2, mpack.fine_slack), dist_thres2,
-                             block="fine", strict_primary=fine_strict)
-    c2 = s2.to(torch.int64)
-    out = torch.full((g, hg), -1.0, device=poses.device).scatter(1, kept, s2)
+    if fine_coarse and not (weighted_distance or negative_scores):
+        s2 = score_groups_coarse(mpack, fine_groups, poses_kept,
+                                 _inflate(dist_thres2, mpack.fine_slack), dist_thres2,
+                                 block="fine", strict_primary=fine_strict)
+        c2 = s2.to(torch.int64)
+    else:
+        s2, c2 = score_groups_exact(mpack, fine_groups, poses_kept, dist_thres2,
+                                    weighted_distance=weighted_distance,
+                                    negative_scores=negative_scores)
+        c2 = c2.to(torch.int64)
+    drop = -float(_BIG) if negative_scores else -1.0
+    out = torch.full((g, hg), drop, device=poses.device).scatter(1, kept, s2)
     cnt = torch.zeros((g, hg), dtype=torch.int64, device=poses.device).scatter(1, kept, c2)
     if ok is not None:
-        out = torch.where(ok, out, -1.0)
+        out = torch.where(ok, out, drop)
         cnt = torch.where(ok, cnt, 0)
     return out, cnt
 
 
 def rank_groups(mpack: ModelPack, groups: torch.Tensor, rows: torch.Tensor, thres2,
                 ok: torch.Tensor, policy) -> torch.Tensor:
-    """Policy-driven ranking dispatch: the two-phase screen.
+    """Policy-driven ranking dispatch.
 
-    Returns [G, P] scores with invalid poses at -1.  The single-phase route
-    (K < 256, or the weighted/negative knobs) needs kernel B2 and raises.
+    The two-phase screen when it is ranking-safe for the configured
+    semantics (K >= 256, neither ``weighted_distance`` nor
+    ``negative_scores``: phase 1 keeps top optimistic counts, which do not
+    bound a signed score from below); otherwise every pose is scored once by
+    the exact ranker.  Returns [G, P] scores with invalid poses at -1, or at
+    -1e12 under ``negative_scores``.
     """
     ks = groups.shape[-1]
     exact_semantics = policy.weighted_distance or policy.negative_scores
-    if not (policy.early_drop and policy.two_phase_scoring and ks >= 256 and not exact_semantics):
-        raise NotImplementedError(
-            "single-phase ranking needs the exact count kernel score_groups_pallas "
-            "(ROADMAP queue B, B2)")
-    s_pl, _ = score_groups_two_phase(
-        mpack, groups, rows, thres2, ok, mode=policy.ranking_mode,
-        pose_tile=policy.two_phase_pose_tile, coarse_stride=policy.two_phase_stride,
-        keep_frac=policy.two_phase_keep_frac, coarse_model=policy.two_phase_coarse_model,
-        fine_stride=policy.two_phase_fine_stride, coarse_linear=policy.two_phase_coarse_linear,
-        fine_coarse=policy.two_phase_fine_coarse, fine_strict=policy.two_phase_fine_strict)
-    return torch.where(ok, s_pl, -1.0)
+    if policy.early_drop and policy.two_phase_scoring and ks >= 256 and not exact_semantics:
+        s_pl, _ = score_groups_two_phase(
+            mpack, groups, rows, thres2, ok, mode=policy.ranking_mode,
+            pose_tile=policy.two_phase_pose_tile, coarse_stride=policy.two_phase_stride,
+            keep_frac=policy.two_phase_keep_frac, coarse_model=policy.two_phase_coarse_model,
+            fine_stride=policy.two_phase_fine_stride,
+            weighted_distance=policy.weighted_distance, negative_scores=policy.negative_scores,
+            coarse_linear=policy.two_phase_coarse_linear,
+            fine_coarse=policy.two_phase_fine_coarse, fine_strict=policy.two_phase_fine_strict)
+    else:
+        s_pl, _ = score_groups_exact(mpack, groups, rows, thres2, mode=policy.ranking_mode,
+                                     weighted_distance=policy.weighted_distance,
+                                     negative_scores=policy.negative_scores)
+    invalid = -float(_BIG) if policy.negative_scores else -1.0
+    return torch.where(ok, s_pl, invalid)
