@@ -5,15 +5,20 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device   — a CUDA card is required; there is no CPU fallback.
-2. build    — compile csrc/coarse_rank.cu and csrc/exact_rank.cu from this
-              checkout (one nvcc each, started together, sm_90a).
-3. B1       — the coarse ranker (TPU kernel B1) against its plain PyTorch
-              version on the card, at both shapes of the standard-density
-              path (phase 1 and phase 2 of the two-phase screen), on real
-              neighbourhoods of the 131k fixture scene with near-true and
-              junk poses.  Integer counts must agree exactly, except points
-              whose float64 4-D distance lies within 1e-5 * gate of the gate;
-              the fractional tiebreak within K float32 ulps.
+2. build    — compile csrc/coarse_rank.cu, exact_rank.cu, full_rank.cu and
+              coarse_linear_rank.cu from this checkout (one nvcc each,
+              started together, sm_90a).
+3. B1, B4, B3 — on real neighbourhoods of the 131k fixture scene with
+              near-true and junk poses, at the shapes of the standard-density
+              path: the coarse ranker (TPU kernel B1) and the linearised
+              coarse ranker (B4) against their plain PyTorch versions at
+              phase 1 and phase 2 of the two-phase screen, B4 also against
+              B1; the orientation-weighted ranker (B3) against its plain
+              version at the full-mode phase 2.  Integer counts must agree
+              exactly, except points whose float64 distance lies within
+              1e-5 * gate of a gate (B4 against B1: within
+              score_kernel.linear_band); coarse tiebreaks within K float32
+              ulps, B3 scores within 1e-5 relative.
 4. main131  — compile the 2400-point box model, build the 131072-point
               touching-fog recall scene (seed 0), prepare it, and run
               find_all with the recall-protocol settings twice (first and
@@ -25,23 +30,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
               most time, host launches, stream syncs and device-to-host
               copies, and the host time of each round's "hypothesize" and
               "finalize" ranges.
-6. B2       — the exact ranker (TPU kernel B2) against its plain version at
+6. main131full — api.Matcher(api.Model(...).init(sample), ranking_mode="full")
+              .match on the 131k scene, first and warm: within the contract,
+              B1 and B3 launched, B2 not, the fog switch off.
+7. main131lin — api.Matcher with two_phase_coarse_linear=True on the 131k
+              scene: within the contract, B4 launched, B1 not.
+8. cli      — the box model and the 131k scene written as binary .pcd files
+              (io.pcd.write_pcd) into a temporary directory of this checkout;
+              cli.match.main with the recall-protocol flags and --save-model,
+              then again on the saved .npz: both exit 0 with the same
+              transform, within the contract.
+9. B2, B3   — the exact ranker (TPU kernel B2) against its plain version at
               the fog route's shapes on the 500k fixture (seed 0): phase 1
               (strided groups, every hypothesis) and phase 2 (full-K groups,
               the kept poses), and the single-phase route with the weighted
-              and negative epilogue; kernel and plain version on the same
-              full-shape inputs.  Counts must agree exactly except near-gate points (reported);
-              scores within 1e-5 relative.
-7. main500  — the 500000-point recall scene (seed 0): find_all first and warm.
+              and negative epilogue; B3 against its plain version at the fog
+              full-mode phase 2 and the same single-phase route; kernel and
+              plain version on the same full-shape inputs.  Counts must agree
+              exactly except near-gate points (reported); scores within 1e-5
+              relative.
+10. main500 — the 500000-point recall scene (seed 0): find_all first and warm.
               The fog switch must fire, the search must launch B2 and not
               B1, the subset join must not overflow, and the first match
               must sit within 1 mm / 0.5 deg of ground truth.
-8. profile500 — one warm 500k find_all under torch.profiler, as phase 5.
+11. profile500 — one warm 500k find_all under torch.profiler, as phase 5.
+12. main500full — api.Scene(scene, ranking_mode="full").find_all_parallel on
+              the 500k scene: the fog switch fires, B2 (phase 1) and B3
+              (phase 2) launched, B1 not, no join overflow, within the
+              contract.
 
-Kernel and plain times are CUDA-event means over warm launches.  Every
-timing line carries the nvidia-smi name and power limit.  The last two lines
-of standard output are one JSON object listing the kernels of the paths and
-then {"ok": true, "device": {...}}.
+Every main path runs with all four launch counts set to 0 just before its
+first call and read just after it.  Kernel and plain times are CUDA-event
+means over warm launches.  Every timing line carries the nvidia-smi name and
+power limit.  The last two lines of standard output are one JSON object
+listing the kernels of the paths and then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -142,10 +164,10 @@ def _profile(tag: str, fn, smi: str) -> dict:
          f"({sum(e.time_range.elapsed_us() for e in syncs) / 1e3:.3f} ms), device-to-host "
          f"copies {d2h} | {smi}")
     for r, ms in range_ms.items():
-        _log(f"[{tag}] range {r}: host ms per round {[round(m, 3) for m in ms]}")
+        _log(f"[{tag}] range {r}: host ms per round {[round(m, 3) for m in ms]} | {smi}")
     for n, (cnt, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         _log(f"[{tag}] device {us / 1e3:9.3f} ms {100.0 * us / max(busy_us, 1e-9):5.1f} % "
-             f"x{cnt:<5d} {n[:110]}")
+             f"x{cnt:<5d} {n[:110]} | {smi}")
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3, "launches": launches,
             "syncs": len(syncs), "range_ms": range_ms}
 
@@ -184,42 +206,110 @@ def _check_poses(dev, prep, model, t_gt, policy, gen, tag_seed):
     return groups, rows
 
 
-def _main_path(tag, driver, sk, model, scene, t_gt, kw, smi):
-    """find_all twice (first, warm) with the launch counts zeroed just before
-    the first call; returns (stats, B1 launches, B2 launches, matches)."""
+# the launch counters of score_kernel, by the TPU kernel each replaces
+COUNTERS = {"B1": "COARSE_RANK", "B2": "EXACT_RANK", "B3": "FULL_RANK", "B4": "COARSE_LINEAR_RANK"}
+
+
+def _main_path(tag, sk, driver, search, t_gt, smi):
+    """``search()`` twice (first, warm) with every launch count zeroed just
+    before the first call; returns (stats, the first call's launches by
+    kernel, its matches)."""
     import torch
 
     from triplet_match_tpu_torch.io.synthetic import sym_delta
 
     torch.cuda.reset_peak_memory_stats()
-    sk.COARSE_RANK.reset()
-    sk.EXACT_RANK.reset()
+    for c in COUNTERS.values():
+        getattr(sk, c).reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    matches = driver.find_all(model, scene, **kw)
+    matches = search()
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    b1, b2 = sk.COARSE_RANK.launches, sk.EXACT_RANK.launches
+    launches = {b: getattr(sk, c).launches for b, c in COUNTERS.items()}
     stats = dict(driver.LAST_SEARCH_STATS)
     t0 = time.perf_counter()
-    matches2 = driver.find_all(model, scene, **kw)
+    matches2 = search()
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     if not matches or not matches2:
-        raise AssertionError(f"[{tag}] find_all found nothing (stats {stats})")
+        raise AssertionError(f"[{tag}] the search found nothing (stats {stats})")
     dt, dr = sym_delta(matches[0].transform, t_gt)
     dt2, dr2 = sym_delta(matches2[0].transform, t_gt)
-    _log(f"[{tag}] find_all first {t_first:.3f} s, warm {t_warm:.3f} s | rounds "
+    _log(f"[{tag}] search first {t_first:.3f} s, warm {t_warm:.3f} s | rounds "
          f"{stats['rounds']} hypotheses {stats['hypotheses_scored']} | matches {len(matches)} | "
          f"first match {dt * 1000:.4f} mm / {dr:.4f} deg (warm {dt2 * 1000:.4f} mm / "
-         f"{dr2:.4f} deg) | B1 launches {b1}, B2 launches {b2} | peak {peak / 2**20:.1f} MiB | "
-         f"{smi}")
-    _log(f"[{tag}] stats {json.dumps(stats)}")
+         f"{dr2:.4f} deg) | launches {launches} | peak {peak / 2**20:.1f} MiB | {smi}")
+    _log(f"[{tag}] stats {json.dumps(stats)} | {smi}")
     if not (dt < 1e-3 and dr < 0.5):
         raise AssertionError(f"[{tag}] pose error {dt * 1000:.4f} mm / {dr:.4f} deg beyond "
                              "1 mm / 0.5 deg")
-    return stats, b1, b2
+    return stats, launches, matches
+
+
+def _expect_launches(tag, launches, stats, launched, idle):
+    """Fail unless every kernel of ``launched`` ran in the path and none of
+    ``idle`` did, by the counters and by the search's own statistics."""
+    keys = {"B1": "coarse_kernel_launches", "B2": "exact_kernel_launches",
+            "B3": "full_kernel_launches", "B4": "coarse_linear_kernel_launches"}
+    for b in launched:
+        if launches[b] <= 0 or stats.get(keys[b], 0) <= 0:
+            raise AssertionError(f"[{tag}] the search did not launch {b}: {launches}")
+    for b in idle:
+        if launches[b] != 0 or stats.get(keys[b], 0) != 0:
+            raise AssertionError(f"[{tag}] the search launched {b}: {launches}")
+
+
+def _check_full(phase, sk, mpack, grp, pr, t2, weighted, negative, smi):
+    """B3 against its plain version on the same inputs; returns its phase
+    record.  The bound counts the first pass (every eligible point against
+    both blocks) and the second (every counted point against its own kind's
+    block), 5 fp32 instructions per evaluation."""
+    import torch
+
+    shifted = pr.clone()
+    shifted[..., 9:12] -= mpack.center
+    me, ms_blk = sk.exact_blocks(mpack)
+    refs = sk.ref_blocks(mpack)
+    inv2t = sk._inv2t(t2)
+
+    def kernel():
+        return sk.score_groups_exact(mpack, grp, pr, t2, mode="full", weighted_distance=weighted,
+                                     negative_scores=negative)
+
+    def plain():
+        return sk.score_groups_full_plain(grp, shifted, me, ms_blk, *refs, t2, inv2t, weighted,
+                                          negative)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    err, n_near = sk.check_exact_parity(got, ref, grp, shifted, me, ms_blk, t2)
+    ms = _cuda_ms(kernel, 10)
+    plain_ms = _cuda_ms(plain, 1)
+    n_poses = pr.shape[1]
+    n_el = (grp[:, 4] > 0.5).sum(1).double()
+    evals = float((n_el * n_poses).sum()) * (me.shape[1] + ms_blk.shape[1])
+    # counted points by kind: a point's count does not depend on the others
+    counted = {}
+    for kind in (True, False):
+        only = grp.clone()
+        only[:, 4] *= ((grp[:, 3] > 0.5) == kind).float()
+        counted[kind] = float(sk.score_groups_exact_plain(only, shifted, me, ms_blk, t2,
+                                                          inv2t)[1].double().sum())
+    evals2 = counted[True] * me.shape[1] + counted[False] * ms_blk.shape[1]
+    nbytes = _nbytes(grp, pr) + 28 * (me.shape[1] + ms_blk.shape[1]) + 8 * grp.shape[0] * n_poses
+    bound_ms, bound_by = _bound(5.0 * (evals + evals2), nbytes)
+    _log(f"[B3] {phase}: groups {tuple(grp.shape)} poses {tuple(pr.shape)} blocks "
+         f"{tuple(me.shape)} + {tuple(ms_blk.shape)} | eligible points per group mean "
+         f"{float(n_el.mean()):.2f} | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+         f"{bound_ms:.4f} ms ({bound_by}, {evals:.4g} + {evals2:.4g} evaluations) | max "
+         f"|score diff| {err:.3g}, near-gate poses {n_near} | score mean "
+         f"{float(got[0].mean()):.3f}, count mean {float(got[1].float().mean()):.3f} | {smi}")
+    return {"phase": phase, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "near_gate_poses": n_near, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def main() -> int:
@@ -229,13 +319,24 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
               file=sys.stderr)
         return 2
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
     import numpy as np
 
-    from triplet_match_tpu_torch import config as cfg
+    from triplet_match_tpu_torch import api, config as cfg
+    from triplet_match_tpu_torch.cli import match as cli
     from triplet_match_tpu_torch.core.cloud import PointCloud
     from triplet_match_tpu_torch.core.transforms import strict_fp32
     from triplet_match_tpu_torch.index.model import compile_model
-    from triplet_match_tpu_torch.io.synthetic import recall_box_model, recall_scene
+    from triplet_match_tpu_torch.io.pcd import write_pcd
+    from triplet_match_tpu_torch.io.synthetic import (
+        recall_box_model,
+        recall_scene,
+        recall_scene_arrays,
+        sym_delta,
+    )
     from triplet_match_tpu_torch.kernels import build as kbuild
     from triplet_match_tpu_torch.search import driver, score_kernel as sk
 
@@ -249,23 +350,27 @@ def main() -> int:
 
     # --- build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        list(pool.map(lambda k: kbuild.build(k, ptxas_info=True), ("coarse_rank", "exact_rank")))
-    kbuild.load_coarse_rank()
-    kbuild.load_exact_rank()
+    sources = ("coarse_rank", "exact_rank", "full_rank", "coarse_linear_rank")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
+        list(pool.map(lambda k: kbuild.build(k, ptxas_info=True), sources))
+    for load in (kbuild.load_coarse_rank, kbuild.load_exact_rank, kbuild.load_full_rank,
+                 kbuild.load_coarse_linear_rank):
+        load()
     walls["build"] = time.perf_counter() - t0
-    for k in ("coarse_rank", "exact_rank"):
+    for k in sources:
         info = [ln.strip() for ln in kbuild.BUILD_LOG.get(k, "").splitlines()
                 if "registers" in ln or "spill" in ln]
         _log(f"[build] {k}.cu: nvcc {kbuild.BUILD_SECONDS.get(k, 0.0):.2f} s | {' | '.join(info)} "
              f"| {smi}")
-    _log(f"[build] both kernels {walls['build']:.2f} s wall (one nvcc each, in parallel) | {smi}")
+    _log(f"[build] {len(sources)} kernels {walls['build']:.2f} s wall (one nvcc each, in "
+         f"parallel) | {smi}")
 
-    # --- 131k fixture and B1 ---------------------------------------------------
+    # --- 131k fixture: B1, B4 and B3 ---------------------------------------------
     t0 = time.perf_counter()
     disc = cfg.DiscretizationParams()
     sample = cfg.SampleParams(min_diameter_factor=0.3, max_diameter_factor=0.95)
     policy = cfg.SearchPolicy()
+    full_policy = dataclasses.replace(policy, ranking_mode="full")
     xyz, nrm, tan = recall_box_model()
     torch.cuda.synchronize()
     tc = time.perf_counter()
@@ -291,7 +396,7 @@ def main() -> int:
     hg = rows.shape[1]
     thres = np.float32(3.0) * np.float32(float(model.resolution))
     t2 = float(thres * thres)
-    b1_phases = []
+    b1_phases, b4_phases, b3_phases = [], [], []
     keep = sk.two_phase_keep(hg, policy.two_phase_keep_frac, policy.two_phase_pose_tile)
     phases = (("phase1", policy.two_phase_stride, "coarse", hg, False),
               ("phase2", policy.two_phase_fine_stride, "fine", keep, policy.two_phase_fine_strict))
@@ -301,68 +406,149 @@ def main() -> int:
         pr = rows[:, lo:lo + n_poses].contiguous()
         shifted = pr.clone()
         shifted[..., 9:12] -= mpack.center
+        wrows = sk.coarse_linear_rows(shifted)
         block = mpack.md_coarse if block_name == "coarse" else mpack.md_fine
         slack = mpack.coarse_slack if block_name == "coarse" else mpack.fine_slack
         t2c = sk._inflate(t2, slack)
         k = grp.shape[2]
         frac = sk._f32(1.0 / (k + 1))
         w_inf, w_str = (frac, 1.0) if strict else (1.0, frac)
-
-        def kernel():
-            return sk.score_groups_coarse(mpack, grp, pr, t2c, t2, block=block_name,
-                                          strict_primary=strict)
-
-        def plain():
-            return sk.score_groups_coarse_plain(grp, shifted, block, t2c, mpack.kind_off, t2,
-                                                w_inf, w_str)
-
-        got = kernel()
-        torch.cuda.synchronize()
-        ref = plain()
-        torch.cuda.synchronize()
-        err, n_near = sk.check_coarse_parity(got, ref, grp, shifted, block, t2c, mpack.kind_off,
-                                             t2, strict)
-        ms = _cuda_ms(kernel, 20)
-        plain_ms = _cuda_ms(plain, 2)
+        parity = (grp, shifted, block, t2c, mpack.kind_off, t2, strict)
         # the work this run's data needs: eligible points x poses x real reps,
         # 7 fp32 instructions each (1 mul, 3 FMA, 2 add for the rep's |p4|^2
-        # hi/lo, 1 min; the point's own |tp4|^2 is added once per point)
+        # hi/lo, 1 min; the point's own |tp4|^2 is added once per point); B4
+        # adds its operand build, 35 FMAs per (pose, point)
         n_el = (grp[:, 4] > 0.5).sum(1).double()
         reps = int(((block[4] + block[5]) < 1e11).sum())
         evals = float((n_el * n_poses).sum()) * reps
-        bound_ms, bound_by = _bound(7.0 * evals,
-                                    _nbytes(grp, pr, block) + 4 * grp.shape[0] * n_poses)
-        _log(f"[B1] {phase}: groups {tuple(grp.shape)} poses {tuple(pr.shape)} block "
-             f"{tuple(block.shape)} ({reps} reps) | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-             f"bound {bound_ms:.4f} ms ({bound_by}, {evals:.4g} evaluations) | max "
-             f"|kernel-plain| {err:.3g}, near-gate poses {n_near} | hits mean "
-             f"{float(got.mean()):.3f} max {float(got.max()):.3f} | {smi}")
-        b1_phases.append({"phase": phase, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                          "bound_ms": bound_ms, "bound_by": bound_by})
-    walls["B1"] = time.perf_counter() - t0
+        nbytes = _nbytes(grp, pr, block) + 4 * grp.shape[0] * n_poses
+        b1_out = None
+        # (wrapper call, launch alone, plain version, instructions, records): the
+        # wrapper adds the centre shift and, for B4, the coefficient rows
+        for tag, kernel, launch, plain, instr, records in (
+                ("B1", lambda: sk.score_groups_coarse(mpack, grp, pr, t2c, t2, block=block_name,
+                                                      strict_primary=strict),
+                 lambda: sk._coarse_launch(grp, shifted, block, t2c, mpack.kind_off, t2, w_inf,
+                                           w_str),
+                 lambda: sk.score_groups_coarse_plain(grp, shifted, block, t2c, mpack.kind_off,
+                                                      t2, w_inf, w_str),
+                 7.0 * evals, b1_phases),
+                ("B4", lambda: sk.score_groups_coarse_linear(mpack, grp, pr, t2c, t2,
+                                                             block=block_name,
+                                                             strict_primary=strict),
+                 lambda: sk._coarse_linear_launch(grp, wrows, block, t2c, mpack.kind_off, t2,
+                                                  w_inf, w_str),
+                 lambda: sk.score_groups_coarse_linear_plain(grp, wrows, block, t2c,
+                                                             mpack.kind_off, t2, w_inf, w_str),
+                 7.0 * evals + 35.0 * float((n_el * n_poses).sum()), b4_phases)):
+            got = kernel()
+            torch.cuda.synchronize()
+            ref = plain()
+            torch.cuda.synchronize()
+            err, n_near = sk.check_coarse_parity(got, ref, *parity)
+            extra = ""
+            if b1_out is None:
+                b1_out = got
+            else:  # B4 against B1: two operand builds, parity within linear_band
+                band = sk.linear_band(grp, shifted, mpack.kind_off, block)
+                _, n_near_b1 = sk.check_coarse_parity(got, b1_out, *parity, atol=band)
+                extra = f" | against B1: near-gate poses {n_near_b1} (band {band:.3g})"
+            ms = _cuda_ms(kernel, 20)
+            launch_ms = _cuda_ms(launch, 20)
+            plain_ms = _cuda_ms(plain, 2)
+            bound_ms, bound_by = _bound(instr, nbytes if tag == "B1" else
+                                        nbytes + wrows.numel() * 4 - pr.numel() * 4)
+            _log(f"[{tag}] {phase}: groups {tuple(grp.shape)} poses {tuple(pr.shape)} block "
+                 f"{tuple(block.shape)} ({reps} reps) | kernel {ms:.4f} ms (launch alone "
+                 f"{launch_ms:.4f} ms), plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+                 f"({bound_by}, {evals:.4g} evaluations) | max |kernel-plain| {err:.3g}, "
+                 f"near-gate poses {n_near}{extra} | hits mean {float(got.mean()):.3f} max "
+                 f"{float(got.max()):.3f} | {smi}")
+            records.append({"phase": phase, "ms": ms, "launch_ms": launch_ms,
+                            "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
+                            "bound_by": bound_by})
+        if phase == "phase2":  # full mode ranks the same survivors through B3
+            b3_phases.append(_check_full("131k full-mode phase 2", sk, mpack, grp, pr, t2,
+                                         False, False, smi))
+    walls["B1, B4, B3 131k"] = time.perf_counter() - t0
 
-    # --- 131k main path ----------------------------------------------------------
+    # --- 131k main paths -----------------------------------------------------------
     t0 = time.perf_counter()
     kw = dict(dist_thres=3.0, model_match_factor=0.5, sample_params=sample, discretization=disc,
               policy=policy, max_icp_iterations=10, seed=5)
-    stats, b1_launches, b2_launches = _main_path("main131", driver, sk, model, scene, t_gt, kw,
-                                                 smi)
+    stats, launches131, _ = _main_path(
+        "main131", sk, driver, lambda: driver.find_all(model, scene, **kw), t_gt, smi)
     if stats["num_second_samples_effective"] != eff_policy.num_second_samples:
         raise AssertionError("the B1 check ran at other shapes than the search: "
                              f"{eff_policy.num_second_samples} second samples vs "
                              f"{stats['num_second_samples_effective']}")
-    if b1_launches <= 0 or stats.get("coarse_kernel_launches", 0) <= 0:
-        raise AssertionError("the 131k search did not launch B1")
-    if stats["fine_rescore_full"] or b2_launches != 0:
+    _expect_launches("main131", launches131, stats, ("B1",), ("B2", "B3", "B4"))
+    if stats["fine_rescore_full"]:
         raise AssertionError("the fog-density switch fired at 131k")
     walls["main131"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     _profile("profile131", lambda: driver.find_all(model, scene, prep=prep, **kw), smi)
     walls["profile131"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    api_kw = dict(dist_thres=3.0, model_match_factor=0.5, sample_params=sample,
+                  max_icp_iterations=10, seed=5)
+    api_model = api.Model(PointCloud.from_arrays(xyz, nrm, tan, device=dev), disc,
+                          policy).init(sample)
+    stats, launches_full131, _ = _main_path(
+        "main131full", sk, driver,
+        lambda: api.Matcher(api_model, policy=full_policy).match(scene, **api_kw), t_gt, smi)
+    _expect_launches("main131full", launches_full131, stats, ("B1", "B3"), ("B2", "B4"))
+    if stats["fine_rescore_full"]:
+        raise AssertionError("the fog-density switch fired at 131k in full mode")
+    walls["main131full"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    lin_policy = dataclasses.replace(policy, two_phase_coarse_linear=True)
+    stats, launches_lin131, _ = _main_path(
+        "main131lin", sk, driver,
+        lambda: api.Matcher(api_model, policy=lin_policy).match(scene, **api_kw), t_gt, smi)
+    _expect_launches("main131lin", launches_lin131, stats, ("B4",), ("B1", "B2", "B3"))
+    walls["main131lin"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    s_xyz, s_nrm, s_tan, _ = recall_scene_arrays(131072, seed=0)
+    with tempfile.TemporaryDirectory(prefix="_smoke_", dir=Path(__file__).resolve().parent) as d:
+        paths = {k: str(Path(d) / f) for k, f in (("model", "model.pcd"), ("scene", "scene.pcd"),
+                                                  ("npz", "model.npz"), ("out1", "m1.json"),
+                                                  ("out2", "m2.json"))}
+        write_pcd(paths["model"], xyz, nrm, tan)
+        write_pcd(paths["scene"], s_xyz, s_nrm, s_tan)
+        flags = ["--quiet", "--dist-thres", "3.0", "--model-match-factor", "0.5",
+                 "--min-diameter-factor", "0.3", "--max-diameter-factor", "0.95", "--max-icp",
+                 "10", "--seed", "5"]
+        runs = []
+        for model_file, extra, out in ((paths["model"], ["--save-model", paths["npz"]], "out1"),
+                                       (paths["npz"], [], "out2")):
+            tr = time.perf_counter()
+            rc = cli.main([model_file, paths["scene"], *flags, *extra, "--out", paths[out]])
+            with open(paths[out]) as f:
+                payload = json.load(f)
+            if rc != 0 or not payload["matches"]:
+                raise AssertionError(f"[cli] exit {rc} on {model_file}: {payload}")
+            tf = np.asarray(payload["matches"][0]["transform"], np.float32)
+            dt, dr = sym_delta(tf, t_gt)
+            runs.append(tf)
+            _log(f"[cli] {Path(model_file).name}: exit {rc}, {len(payload['matches'])} matches, "
+                 f"search {payload['elapsed_sec']:.3f} s, run {time.perf_counter() - tr:.3f} s | "
+                 f"first match {dt * 1000:.4f} mm / {dr:.4f} deg | {smi}")
+            if not (dt < 1e-3 and dr < 0.5):
+                raise AssertionError(f"[cli] pose error {dt * 1000:.4f} mm / {dr:.4f} deg")
+        diff = float(np.abs(runs[0] - runs[1]).max())
+        _log(f"[cli] the .pcd and the saved .npz runs' transforms differ by at most {diff:.3g} "
+             f"| {smi}")
+        if diff > 1e-5:
+            raise AssertionError(f"[cli] the two runs printed different transforms ({diff})")
+    walls["cli"] = time.perf_counter() - t0
     del prep, scene, groups, rows
 
-    # --- 500k fixture and B2 -------------------------------------------------------
+    # --- 500k fixture: B2 and B3 -----------------------------------------------------
     t0 = time.perf_counter()
     scene5, t_gt5 = recall_scene(500000, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -424,19 +610,27 @@ def main() -> int:
              f"{float(got[1].float().mean()):.3f} max {int(got[1].max())} | {smi}")
         b2_phases.append({"phase": phase, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
                           "near_gate_poses": n_near, "bound_ms": bound_ms, "bound_by": bound_by})
-    walls["B2"] = time.perf_counter() - t0
+    # full mode on the fog route: phase 2 keeps the configured fine stride
+    # (driver.fog_policy), and the single-phase route ranks every pose
+    fog_full, _ = driver.fog_policy(dataclasses.replace(eff5, ranking_mode="full"), prep5, model)
+    lo = (hg5 - keep5) // 2
+    b3_phases.append(_check_full(
+        "500k fog full-mode phase 2", sk, mpack,
+        groups5[:, :, ::fog_full.two_phase_fine_stride].contiguous(),
+        rows5[:, lo:lo + keep5].contiguous(), t2, False, False, smi))
+    b3_phases.append(_check_full("500k single-phase weighted+negative", sk, mpack, groups5,
+                                 rows5, t2, True, True, smi))
+    walls["B2, B3 500k"] = time.perf_counter() - t0
 
-    # --- 500k main path ----------------------------------------------------------
+    # --- 500k main paths -------------------------------------------------------------
     t0 = time.perf_counter()
-    stats5, b1_500, b2_500 = _main_path("main500", driver, sk, model, scene5, t_gt5, kw, smi)
+    stats5, launches500, _ = _main_path(
+        "main500", sk, driver, lambda: driver.find_all(model, scene5, **kw), t_gt5, smi)
     if not stats5["fine_rescore_full"]:
         raise AssertionError("the fog-density switch did not fire at 500k")
     if stats5["num_second_samples_effective"] != eff5.num_second_samples:
         raise AssertionError("the B2 check ran at other shapes than the search")
-    if b2_500 <= 0 or stats5["exact_kernel_launches"] <= 0:
-        raise AssertionError("the 500k search did not launch B2")
-    if b1_500 != 0 or stats5["coarse_kernel_launches"] != 0:
-        raise AssertionError("the 500k search launched B1")
+    _expect_launches("main500", launches500, stats5, ("B2",), ("B1", "B3", "B4"))
     if stats5["join_overflow_max"] != 0:
         raise AssertionError(f"the subset join overflowed by {stats5['join_overflow_max']}")
     walls["main500"] = time.perf_counter() - t0
@@ -444,24 +638,45 @@ def main() -> int:
     t0 = time.perf_counter()
     _profile("profile500", lambda: driver.find_all(model, scene5, prep=prep5, **kw), smi)
     walls["profile500"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    stats5f, launches_full500, _ = _main_path(
+        "main500full", sk, driver,
+        lambda: api.Scene(scene5, full_policy).find_all_parallel(api_model, **api_kw), t_gt5,
+        smi)
+    if not stats5f["fine_rescore_full"]:
+        raise AssertionError("the fog-density switch did not fire at 500k in full mode")
+    _expect_launches("main500full", launches_full500, stats5f, ("B2", "B3"), ("B1", "B4"))
+    if stats5f["join_overflow_max"] != 0:
+        raise AssertionError(f"the subset join overflowed by {stats5f['join_overflow_max']}")
+    walls["main500full"] = time.perf_counter() - t0
     walls["total"] = time.perf_counter() - t_all
     _log(f"[wall] seconds per phase {json.dumps({k: round(v, 3) for k, v in walls.items()})} | "
          f"{smi}")
 
-    def entry(name, source, replaces, launches, phases):
+    paths = {"main131": launches131, "main131full": launches_full131,
+             "main131lin": launches_lin131, "main500": launches500,
+             "main500full": launches_full500}
+
+    def entry(b, name, source, replaces, path, phases):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": max(p["max_abs_err"] for p in phases),
+                "launches": paths[path][b], "launches_path": path,
+                "launches_by_path": {p: c[b] for p, c in paths.items()},
+                "max_abs_err": max(p["max_abs_err"] for p in phases),
                 "ms": phases[0]["ms"], "plain_ms": phases[0]["plain_ms"],
                 "bound_ms": phases[0]["bound_ms"], "bound_by": phases[0]["bound_by"],
                 "library_ms": None, "phases": phases}
 
+    src, tpu = "triplet_match_tpu_torch/csrc/", "triplet_match_tpu/search/score_pallas.py"
     line = {"kernels": [
-        entry("coarse_rank (B1, two-phase coarse 4-D hit-count ranker)",
-              "triplet_match_tpu_torch/csrc/coarse_rank.cu",
-              "triplet_match_tpu/search/score_pallas.py:625", b1_launches, b1_phases),
-        entry("exact_rank (B2, exact two-minimum count ranker)",
-              "triplet_match_tpu_torch/csrc/exact_rank.cu",
-              "triplet_match_tpu/search/score_pallas.py:394", b2_500, b2_phases),
+        entry("B1", "coarse_rank (B1, two-phase coarse 4-D hit-count ranker)",
+              src + "coarse_rank.cu", tpu + ":625", "main131", b1_phases),
+        entry("B2", "exact_rank (B2, exact two-minimum count ranker)",
+              src + "exact_rank.cu", tpu + ":394", "main500", b2_phases),
+        entry("B3", "full_rank (B3, orientation-weighted exact ranker, full mode)",
+              src + "full_rank.cu", tpu + ":394", "main131full", b3_phases),
+        entry("B4", "coarse_linear_rank (B4, pose-linearised coarse 4-D hit-count ranker)",
+              src + "coarse_linear_rank.cu", tpu + ":922", "main131lin", b4_phases),
     ]}
     print(smi, flush=True)
     print(json.dumps(line), flush=True)

@@ -36,3 +36,18 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     assert any(m.endswith("search.driver") for m in modules)
     assert any(m.endswith("kernels.build") for m in modules)
+
+
+def test_port_sources_import_no_jax():
+    """No source of the port, nor chip_smoke.py, has an import of jax or of
+    the JAX package (a static scan, which also covers imports inside
+    functions that the import test above never runs)."""
+    import re
+
+    pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax\b|triplet_match_tpu(?!_torch)\b)",
+                         re.MULTILINE)
+    sources = sorted((REPO / "triplet_match_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    bad = [f"{p.relative_to(REPO)}: {m.group(0).strip()}" for p in sources
+           for m in pattern.finditer(p.read_text())]
+    assert not bad, bad
+    assert len(sources) > 20

@@ -78,24 +78,27 @@ def test_find_all_matches_jax(fixture):
 
 
 def test_find_all_raises_off_the_slice(fixture):
-    """The fog route runs now (tests/test_torch_fog_round.py); what is still
-    to port raises and names its ROADMAP item: the meshes (A12), the
-    orientation-weighted full ranking (B3) and the linearised coarse kernel
-    (B4), on the standard route and behind the fog switch."""
-    _, _, _, tmodel, tscene = fixture
+    """The orientation-weighted full ranking (B3) and the linearised coarse
+    kernel (B4) now run, on the standard route and behind the fog switch
+    (``fine_full_rescore_ratio=0`` forces it), and find the pose as the JAX
+    package does (tests/test_score_pallas.py::test_two_phase_full_mode_survivors);
+    what is still to port raises and names its ROADMAP item: the meshes (A12)."""
+    _, _, t_gt, tmodel, tscene = fixture
     with pytest.raises(NotImplementedError, match="ROADMAP queue A, A12"):
         td.find_all(tmodel, tscene, policy=TPOLICY, mesh=object(), **FIND)
     with pytest.raises(NotImplementedError, match="ROADMAP queue A, A12"):
         td.prepare_scene(tscene, TPOLICY, mesh=object())
-    for ratio in (16.0, 0.0):
-        pol = dataclasses.replace(TPOLICY, fine_full_rescore_ratio=ratio)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue B, B3"):
-            td.find_all(tmodel, tscene, policy=dataclasses.replace(pol, ranking_mode="full"),
-                        sample_params=TSAMPLE, **FIND)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B, B4"):
-        td.find_all(tmodel, tscene,
-                    policy=dataclasses.replace(TPOLICY, two_phase_coarse_linear=True),
-                    sample_params=TSAMPLE, **FIND)
+    gt = torch.from_numpy(np.asarray(t_gt, np.float64))
+    small = dataclasses.replace(TPOLICY, adaptive_second_samples=False)
+    routes = [(dataclasses.replace(small, ranking_mode="full"), False),
+              (dataclasses.replace(small, ranking_mode="full", fine_full_rescore_ratio=0.0), True),
+              (dataclasses.replace(small, two_phase_coarse_linear=True), False)]
+    for pol, fog in routes:
+        tm = td.find_all(tmodel, tscene, policy=pol, sample_params=TSAMPLE, **FIND)
+        assert tm, pol
+        dt, dr = pose_delta(torch.from_numpy(tm[0].transform).double(), gt)
+        assert float(dt) < 6e-3 and float(np.degrees(float(dr))) < 0.6
+        assert td.LAST_SEARCH_STATS["fine_rescore_full"] is fog
 
 
 def test_entry_points_default_to_the_card():

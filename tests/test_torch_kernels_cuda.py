@@ -88,18 +88,13 @@ def test_find_all_on_card_launches_the_kernel(card):
     assert driver.LAST_SEARCH_STATS["coarse_kernel_launches"] > 0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("knobs", ["plain", "weighted", "negative"])
-@pytest.mark.parametrize("big", [False, True])
-def test_exact_kernel_matches_plain(card, knobs, big):
-    """B2 against its plain version; ``big`` packs 4096 model points, whose
-    blocks need more than 48 KB of shared memory."""
-    dev = card[0]
+def _exact_inputs(dev, big):
+    """A pack (4096 model points when ``big``), groups [16, 8, 256] of a
+    scene with the model planted, and centre-shifted rows [16, 96, 16], half
+    near the true pose and half junk."""
     n_edge, n_face = (1500, 4500) if big else (120, 360)
     xyz, nrm, tan = make_box_model(n_edge=n_edge, n_face=n_face, size=(1.0, 0.8, 0.6), seed=0)
     pack = sk.pack_model(SimpleNamespace(cloud=PointCloud.from_arrays(xyz, nrm, tan, device=dev)))
-    me, ms = sk.exact_blocks(pack)
-    assert ((me.shape[1] + ms.shape[1]) * 16 > 48 * 1024) == big
     scene, t_gt, _ = embed_in_scene(xyz, nrm, tan, noise=0.001, n_clutter=2000, seed=7,
                                     device=dev)
     tm = torch.linalg.vector_norm(scene.tangent, dim=-1) > 0.7
@@ -114,6 +109,19 @@ def test_exact_kernel_matches_plain(card, knobs, big):
     ts[:, hg // 2:, :3, 3] += rng.normal(0, 0.3, (g, hg - hg // 2, 3)).astype(np.float32)
     rows = sk.poses_to_rows(torch.from_numpy(ts).to(dev))
     rows[..., 9:12] -= pack.center
+    return pack, groups, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", ["plain", "weighted", "negative"])
+@pytest.mark.parametrize("big", [False, True])
+def test_exact_kernel_matches_plain(card, knobs, big):
+    """B2 against its plain version; ``big`` packs 4096 model points, whose
+    blocks need more than 48 KB of shared memory."""
+    pack, groups, rows = _exact_inputs(card[0], big)
+    me, ms = sk.exact_blocks(pack)
+    assert ((me.shape[1] + ms.shape[1]) * 16 > 48 * 1024) == big
+    hg = rows.shape[1]
     t2 = float(np.float32(0.012) ** 2)
     weighted, negative = knobs == "weighted", knobs == "negative"
     inv2t = sk._inv2t(t2)
@@ -129,6 +137,87 @@ def test_exact_kernel_matches_plain(card, knobs, big):
         sk._exact_launch(groups.double(), rows, me, ms, t2, inv2t, weighted, negative)
     with pytest.raises(ValueError):
         sk._exact_launch(groups.cpu(), rows, me, ms, t2, inv2t, weighted, negative)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", ["plain", "weighted+negative"])
+@pytest.mark.parametrize("big", [False, True])
+def test_full_kernel_matches_plain(card, knobs, big):
+    """B3 against its plain version; ``big`` packs 4096 model points, whose
+    blocks and reference vectors need ~160 KB of shared memory."""
+    pack, groups, rows = _exact_inputs(card[0], big)
+    me, ms = sk.exact_blocks(pack)
+    refs = sk.ref_blocks(pack)
+    assert ((me.shape[1] + ms.shape[1] + groups.shape[2]) * 32 > 48 * 1024) == big
+    hg = rows.shape[1]
+    t2 = float(np.float32(0.012) ** 2)
+    weighted = negative = knobs != "plain"
+    inv2t = sk._inv2t(t2)
+
+    before = sk.FULL_RANK.launches
+    got = sk._exact_launch(groups, rows, me, ms, t2, inv2t, weighted, negative, refs)
+    torch.cuda.synchronize()
+    assert sk.FULL_RANK.launches == before + 1
+    ref = sk.score_groups_full_plain(groups, rows, me, ms, *refs, t2, inv2t, weighted, negative)
+    _, excused = sk.check_exact_parity(got, ref, groups, rows, me, ms, t2)
+    assert excused == 0
+    assert (got[0][:, : hg // 2].mean(1) > got[0][:, hg // 2:].mean(1)).all()
+    count_only = sk._exact_launch(groups, rows, me, ms, t2, inv2t, weighted, negative)
+    assert torch.equal(count_only[1], got[1])  # B3's count is B2's
+    with pytest.raises(ValueError):
+        sk._exact_launch(groups, rows, me, ms, t2, inv2t, weighted, negative,
+                         (refs[0][:, :-1], refs[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,stride,strict_primary", [("coarse", 8, False), ("fine", 4, True)])
+def test_coarse_linear_kernel_matches_plain(card, block, stride, strict_primary):
+    """B4 against its plain version, and against B1 within ``linear_band``."""
+    pack, groups, rows = _exact_inputs(card[0], False)
+    groups = groups[:, :, ::stride].contiguous()
+    md = pack.md_coarse if block == "coarse" else pack.md_fine
+    t2 = float(np.float32(0.012) ** 2)
+    t2c = sk._inflate(t2, pack.coarse_slack if block == "coarse" else pack.fine_slack)
+    frac = sk._f32(1.0 / (groups.shape[2] + 1))
+    w = (frac, 1.0) if strict_primary else (1.0, frac)
+    wrows = sk.coarse_linear_rows(rows)
+
+    before = sk.COARSE_LINEAR_RANK.launches
+    got = sk._coarse_linear_launch(groups, wrows, md, t2c, pack.kind_off, t2, *w)
+    torch.cuda.synchronize()
+    assert sk.COARSE_LINEAR_RANK.launches == before + 1
+    ref = sk.score_groups_coarse_linear_plain(groups, wrows, md, t2c, pack.kind_off, t2, *w)
+    args = (groups, rows, md, t2c, pack.kind_off, t2, strict_primary)
+    sk.check_coarse_parity(got, ref, *args)
+    b1 = sk._coarse_launch(groups, rows, md, t2c, pack.kind_off, t2, *w)
+    sk.check_coarse_parity(got, b1, *args, atol=sk.linear_band(groups, rows, pack.kind_off, md))
+    with pytest.raises(ValueError):
+        sk._coarse_linear_launch(groups, wrows[..., :6], md, t2c, pack.kind_off, t2, *w)
+
+
+@pytest.mark.cuda
+def test_matcher_on_card_launches_b3_and_b4(card):
+    """The object API on the card: full-mode ranking launches B1 and B3, the
+    linearised route B4 and not B1, and both find the pose."""
+    from triplet_match_tpu_torch import api
+
+    dev, model, scene, t_gt = card
+    base = dataclasses.replace(cfg.SearchPolicy(), num_first_samples=16, num_second_samples=8,
+                               query_cap=8, score_neighbors=256, finalists=2, max_rounds=2)
+    m = api.Model(model.cloud, cfg.DiscretizationParams(), base)
+    m._compiled = model
+    for knobs, launched, idle in ((dict(ranking_mode="full"), ("coarse", "full"), "exact"),
+                                  (dict(two_phase_coarse_linear=True), ("coarse_linear",),
+                                   "coarse")):
+        matches = api.Matcher(m, policy=dataclasses.replace(base, **knobs)).match(
+            scene, dist_thres=3.0, model_match_factor=0.5, sample_params=SAMPLE,
+            max_icp_iterations=5)
+        stats = driver.LAST_SEARCH_STATS
+        assert all(stats[f"{k}_kernel_launches"] > 0 for k in launched), stats
+        assert stats[f"{idle}_kernel_launches"] == 0
+        assert matches
+        dt, dr = sym_delta(matches[0].transform, t_gt)
+        assert dt < 6e-3 and dr < 0.6
 
 
 @pytest.mark.cuda

@@ -141,24 +141,39 @@ def test_two_phase_keep_set_identical_under_ties(setup):
 
 
 def test_rank_groups_raises_off_the_slice(setup):
-    """The routes that need a kernel still to port raise and name its ROADMAP
-    item: the orientation-weighted full mode (B3), on both the single-phase
-    and the two-phase route, and the linearised coarse kernel (B4)."""
+    """The routes that needed a kernel still to port now rank: the
+    orientation-weighted full mode (B3) on the single-phase route (K < 256)
+    as the JAX package's does, and on the two-phase route, with the
+    linearised coarse kernel (B4), as ``score_groups_two_phase`` does with the
+    policy's knobs (held to JAX in tests/test_torch_full_rank.py and
+    tests/test_torch_coarse_linear.py).  An unknown ranking mode raises."""
     import dataclasses
 
     from triplet_match_tpu_torch import config as tcfg
 
-    tp = setup["tpack"]
-    rows = torch.from_numpy(setup["rows"])
-    ok = torch.ones(rows.shape[:2], dtype=torch.bool)
+    jp, tp = setup["jpack"], setup["tpack"]
+    rows = setup["rows"][:4, :32]
+    ok = np.ones(rows.shape[:2], bool)
+    ok[:, 3::5] = False
+    groups = np.ascontiguousarray(setup["groups"][:4, :, :128])
+    jpol = dataclasses.replace(POLICY, pallas_interpret=True, ranking_mode="full")
+    ref = np.asarray(jsp.rank_groups(jp, jnp.asarray(groups), jnp.asarray(rows), setup["t2"],
+                                     jnp.asarray(ok), jpol))
     full = dataclasses.replace(tcfg.SearchPolicy(), ranking_mode="full")
-    for k in (128, 256):
-        groups = torch.from_numpy(setup["groups"][:, :, :k].copy())
-        with pytest.raises(NotImplementedError, match="ROADMAP queue B, B3"):
-            tsk.rank_groups(tp, groups, rows, setup["t2"], ok, full)
-    linear = dataclasses.replace(tcfg.SearchPolicy(), two_phase_coarse_linear=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B, B4"):
-        tsk.rank_groups(tp, torch.from_numpy(setup["groups"]), rows, setup["t2"], ok, linear)
-    with pytest.raises(NotImplementedError, match="B3"):
-        tsk.score_groups_exact(tp, torch.from_numpy(setup["groups"]), rows, setup["t2"],
-                               mode="full")
+    tr, tok = torch.from_numpy(rows), torch.from_numpy(ok)
+    got = tsk.rank_groups(tp, torch.from_numpy(groups), tr, setup["t2"], tok, full).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    assert (got[~ok] == -1.0).all() and (got[ok] > 0).any()
+    groups = torch.from_numpy(np.ascontiguousarray(setup["groups"][:4]))
+    for pol in (full, dataclasses.replace(tcfg.SearchPolicy(), two_phase_coarse_linear=True)):
+        two, _ = tsk.score_groups_two_phase(
+            tp, groups, tr, setup["t2"], tok, mode=pol.ranking_mode,
+            pose_tile=pol.two_phase_pose_tile, coarse_stride=pol.two_phase_stride,
+            keep_frac=pol.two_phase_keep_frac, fine_stride=pol.two_phase_fine_stride,
+            coarse_linear=pol.two_phase_coarse_linear, fine_coarse=pol.two_phase_fine_coarse,
+            fine_strict=pol.two_phase_fine_strict)
+        ranked = tsk.rank_groups(tp, groups, tr, setup["t2"], tok, pol)
+        torch.testing.assert_close(ranked, two, rtol=0, atol=0)
+        assert (ranked[tok] >= 0).any()
+    with pytest.raises(ValueError, match="mode"):
+        tsk.score_groups_exact(tp, groups, tr, setup["t2"], mode="orientation")

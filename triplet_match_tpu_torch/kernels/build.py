@@ -2,10 +2,11 @@
 
 Each kernel is a ``csrc/*.cu`` file with a plain ``extern "C"`` launcher
 (``<name>_launch``, returning the launch's ``cudaError_t``), compiled by
-``nvcc`` into a shared library at first use and loaded with ``ctypes``.
-Libraries land in ``triplet_match_tpu_torch/_build/`` under a name keyed by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once.  Nothing here runs at import.
+``nvcc`` into a shared library at first use and loaded with ``ctypes``.  Two
+kernels may share device code through a ``csrc/*.cuh`` header.  Libraries
+land in ``triplet_match_tpu_torch/_build/`` under a name keyed by a hash of
+the source, the headers and the flags, so an edited source or header rebuilds
+and an unchanged one loads at once.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ def build(name: str, ptxas_info: bool = False) -> Path:
     in ``BUILD_LOG``); it does not change the library, so not its name.
     """
     src = _SRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(_SRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return lib
@@ -90,3 +92,15 @@ def load_exact_rank() -> ctypes.CDLL:
     """The exact-ranker library (``csrc/exact_rank.cu``), built on first use."""
     return _load("exact_rank", [_P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _F, _F, _I,
                                 _I, _P])
+
+
+def load_full_rank() -> ctypes.CDLL:
+    """The orientation-weighted ranker library (``csrc/full_rank.cu``), built on first use."""
+    return _load("full_rank", [_P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                               _F, _F, _F, _I, _I, _P])
+
+
+def load_coarse_linear_rank() -> ctypes.CDLL:
+    """The linearised coarse-ranker library (``csrc/coarse_linear_rank.cu``), built on first use."""
+    return _load("coarse_linear_rank", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P])
+

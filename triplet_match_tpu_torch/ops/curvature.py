@@ -52,6 +52,20 @@ def principal_curvatures(cloud, k: int = 30) -> CurvatureInfo:
     return curvature_from_neighbors(cloud.normal, cloud.normal[idx], nbr_mask=d2 < _INF)
 
 
+def estimate_edge_tangents(cloud, k: int = 30, *, curvature_ratio_threshold: float = 0.2,
+                           min_pc_max: float = 1e-3) -> torch.Tensor:
+    """Edge tangents for clouds that lack them: ``normal x pc_max_dir`` (unit)
+    where the curvature ratio marks a crease and the normal variation clears
+    the ``min_pc_max`` floor, zero elsewhere (the convention of the edge
+    filter, impl/model.hpp:96-99).  Returns [N, 3]."""
+    curv = principal_curvatures(cloud, k=k)
+    is_edge = (cloud.valid & (curvature_ratio(curv) < curvature_ratio_threshold)
+               & (curv.pc_max > min_pc_max))
+    t = torch.linalg.cross(cloud.normal, curv.pc_max_dir, dim=-1)
+    t = t / torch.clamp(torch.linalg.vector_norm(t, dim=-1, keepdim=True), min=1e-12)
+    return torch.where(is_edge[:, None], t, torch.zeros_like(t))
+
+
 def curvature_ratio(curv: CurvatureInfo) -> torch.Tensor:
     """pc_min / pc_max, +inf where pc_max is 0 (never an edge, impl/model.hpp:98)."""
     ratio = curv.pc_min / torch.clamp(curv.pc_max, min=1e-30)

@@ -6,7 +6,7 @@ Mirrors the control flow of impl/scene.hpp:39-240:
   WHILE matches found:                                   impl/scene.hpp:70-95
     sample first/second pairs, query model,              impl/scene.hpp:242-353
     pose hypotheses (base_transform) + force_up gate,    impl/scene.hpp:315-319
-    rank hypotheses (two-phase kernels B1 or B2),        impl/scene.hpp:326
+    rank hypotheses (score_kernel.rank_groups),          impl/scene.hpp:326
     promote finalists (prescreen) -> ICP,                impl/scene.hpp:361-366,171
     sort by corr count, greedy non-overlap acceptance,   impl/scene.hpp:193-237
     mask accepted scene points.                          impl/scene.hpp:87-93
@@ -579,7 +579,8 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
              discretization: DiscretizationParams = DEFAULT_DISCRETIZATION,
              policy: SearchPolicy = DEFAULT_POLICY, max_icp_iterations: int = 10,
              seed: int = 13, prep: ScenePrep | None = None, mesh=None,
-             generator: torch.Generator | None = None, device=None) -> list[Match]:
+             generator: torch.Generator | None = None, device=None,
+             progress=None) -> list[Match]:
     """Find all model instances in the scene (``scene::find_all_parallel``,
     include/scene:47-48), on ``device`` (default: the model's).
 
@@ -595,10 +596,17 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
     When the ball population q95 exceeds ``fine_full_rescore_ratio *
     score_neighbors`` the fog-density switch fires (``fog_policy``).
 
+    ``progress``: optional callable polled with the fraction of the current
+    phase done, 0.0 at each phase's start and after every round (the
+    reference's per-``find_parallel`` progress bar, src/progress_bar.cpp:10-48),
+    e.g. ``utils.progress.ProgressBar.poll``.
+
     ``LAST_SEARCH_STATS`` gets the JAX package's keys (without its
-    executable-cache and profiler entries) plus ``coarse_kernel_launches``
-    and ``exact_kernel_launches``.  Raises ``NotImplementedError`` for
-    ``mesh=`` and ``scorer="jnp"``.
+    executable-cache and profiler entries) plus the launches of each ranking
+    kernel in this search: ``coarse_kernel_launches`` (B1),
+    ``exact_kernel_launches`` (B2), ``full_kernel_launches`` (B3) and
+    ``coarse_linear_kernel_launches`` (B4).  Raises ``NotImplementedError``
+    for ``mesh=`` and ``scorer="jnp"``.
     """
     if mesh is not None:
         raise NotImplementedError(_MESH)
@@ -609,7 +617,10 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
     if dist_thres is None:
         dist_thres = policy.corr_dist_factor
     gen = generator if generator is not None else torch.Generator().manual_seed(seed)
-    launches0, exact0 = sk.COARSE_RANK.launches, sk.EXACT_RANK.launches
+    counters = {"coarse_kernel_launches": sk.COARSE_RANK, "exact_kernel_launches": sk.EXACT_RANK,
+                "full_kernel_launches": sk.FULL_RANK,
+                "coarse_linear_kernel_launches": sk.COARSE_LINEAR_RANK}
+    launches0 = {key: c.launches for key, c in counters.items()}
     with strict_fp32():
         if prep is None:
             prep = prepare_scene(scene_cloud.to(device), policy)
@@ -659,8 +670,8 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
                                                    / max(stats["finalists"], 1))
             if round_s:
                 LAST_SEARCH_STATS["round_ms_avg"] = 1000.0 * float(np.mean(round_s))
-            LAST_SEARCH_STATS["coarse_kernel_launches"] = sk.COARSE_RANK.launches - launches0
-            LAST_SEARCH_STATS["exact_kernel_launches"] = sk.EXACT_RANK.launches - exact0
+            for key, c in counters.items():
+                LAST_SEARCH_STATS[key] = c.launches - launches0[key]
 
         matches: list[Match] = []
         rnd = 0
@@ -672,7 +683,9 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
             phase_rounds = max(1, -(-outer_bound // policy.num_first_samples))
             stats["phases"] += 1
             phase_accepted = phase_early_out = False
-            for _ in range(phase_rounds):
+            if progress is not None:
+                progress(0.0)
+            for round_in_phase in range(phase_rounds):
                 if rnd >= policy.max_rounds:
                     break
                 draws = draw_round(gen, policy.num_first_samples, policy.second_pool, device)
@@ -684,6 +697,8 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
                 accept = res.accept.cpu().numpy()
                 round_s.append(time.perf_counter() - t0)
                 rnd += 1
+                if progress is not None:
+                    progress((round_in_phase + 1) / phase_rounds)
                 stats["rounds"] += 1
                 stats["hypotheses_scored"] += int(res.hypotheses_scored)
                 stats["finalists"] += accept.shape[0]

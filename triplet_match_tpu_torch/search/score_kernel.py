@@ -8,17 +8,24 @@ ranks every pose on a strided neighbourhood subsample; the per-group top
 blocks (256, then 512 with the strict count as the primary key); on the
 fog-density route both take exact distances to the whole model.
 
-Two kernels rank.  ``score_groups_coarse`` (TPU kernel B1,
-``score_pallas.py:_coarse_kernel``) sweeps a 4-D representative block; the
-standard-density configuration runs it in both phases.  ``score_groups_exact``
-(TPU kernel B2, ``score_pallas.py:_kernel`` in count mode) takes the exact
-nearest-neighbour distance to the whole compact edge and surface blocks; the
-fog-density route runs it in both phases, and the single-phase route runs it
-alone.  On a CUDA tensor each launches its hand-written Hopper kernel
-(``csrc/coarse_rank.cu``, ``csrc/exact_rank.cu``); on a CPU tensor it runs its
-plain PyTorch version of the same arithmetic.  The orientation-weighted full
-mode (B3) and the linearised coarse kernel (B4) are still to port, and the
-routes that need them raise ``NotImplementedError``.
+Four kernels rank, one for each TPU kernel of ``score_pallas.py``:
+
+* ``score_groups_coarse`` (B1, ``_coarse_kernel``) sweeps a 4-D
+  representative block; the standard-density configuration runs it in both
+  phases.
+* ``score_groups_exact`` (B2, ``_kernel`` in count mode) takes the exact
+  nearest-neighbour distance to the whole compact edge and surface blocks; the
+  fog-density route runs it in both phases, the single-phase route alone.
+* ``score_groups_exact(mode="full")`` (B3, ``_kernel`` in full mode) adds the
+  reference's orientation weight to B2's count; ``ranking_mode="full"`` runs
+  it wherever B2 would rank the survivors or the single phase.
+* ``score_groups_coarse_linear`` (B4, ``_coarse_linear_kernel``) is B1 with a
+  pose-linearised operand; ``two_phase_coarse_linear`` runs it in place of B1.
+
+On a CUDA tensor each launches its hand-written Hopper kernel
+(``csrc/coarse_rank.cu``, ``exact_rank.cu``, ``full_rank.cu``,
+``coarse_linear_rank.cu``); on a CPU tensor it runs its plain PyTorch version
+of the same arithmetic.
 """
 
 from __future__ import annotations
@@ -30,7 +37,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from triplet_match_tpu_torch.kernels.build import load_coarse_rank, load_exact_rank
+from triplet_match_tpu_torch.kernels.build import (
+    load_coarse_linear_rank,
+    load_coarse_rank,
+    load_exact_rank,
+    load_full_rank,
+)
 
 _BIG = np.float32(1.0e12)
 _FAR = 1.0e6  # padding coordinate for invalid points
@@ -43,13 +55,15 @@ def _round_up(x: int, m: int) -> int:
 class ModelPack(NamedTuple):
     """Model arrays staged for the ranking kernels (built once per model).
 
-    Same layout as the JAX ``ModelPack``: ``md_edge``/``md_surf`` are the
-    compact blocks [x, y, z, |p|^2, 0, 0, 0, 0] that B2 sweeps (their first
+    The JAX ``ModelPack``'s arrays: ``md_edge``/``md_surf`` are the compact
+    blocks [x, y, z, |p|^2, 0, 0, 0, 0] that B2 and B3 sweep (their first
     ``n_edge_cols``/``n_surf_cols`` columns are model points, the rest FAR
-    padding); ``channels_d``/``channels_w`` feed B3 (not yet ported);
-    ``md_coarse``/``md_fine`` are the 4-D representative blocks
-    [x, y, z, w(kind), |p4|^2_hi, |p4|^2_lo, 1, 1] that B1 sweeps.  The
-    scalars are python floats (float32 values).
+    padding); ``channels_d``/``channels_w`` are the full pack that the TPU's
+    B3 sweeps; ``md_coarse``/``md_fine`` are the 4-D representative blocks
+    [x, y, z, w(kind), |p4|^2_hi, |p4|^2_lo, 1, 1] that B1 and B4 sweep.  The
+    port adds ``mref_edge``/``mref_surf`` [3, *], the reference vectors
+    (tangents, normals) of the compact blocks' columns, for B3.  The scalars
+    are python floats (float32 values).
     """
 
     channels_d: torch.Tensor
@@ -65,6 +79,8 @@ class ModelPack(NamedTuple):
     fine_slack: float
     n_edge_cols: int  # model points in md_edge
     n_surf_cols: int  # model points in md_surf
+    mref_edge: torch.Tensor  # [3, NeP] tangents of md_edge's columns (0 on padding)
+    mref_surf: torch.Tensor  # [3, NsP] normals of md_surf's columns
 
 
 def _coverage_subsample(xyz, valid, cap: int):
@@ -178,6 +194,10 @@ def pack_model(model, max_points: int = 4096, coarse_points: int = 512,
     edge_pts = xyz[valid & is_edge]
     surf_pts = xyz[valid & ~is_edge]
 
+    def ref_block(refs):
+        bp = _round_up(max(refs.shape[0], 1), 128)
+        return np.ascontiguousarray(padn(refs.astype(np.float32), 0.0, to=bp).T)
+
     def coarse(pts, cap):
         if pts.shape[0] == 0:
             return pts, 0.0
@@ -219,7 +239,8 @@ def pack_model(model, max_points: int = 4096, coarse_points: int = 512,
     return ModelPack(t(ch_d), t(ch_w), n_pad, t(center.astype(np.float32)),
                      t(block(edge_pts)), t(block(surf_pts)), t(md_coarse),
                      float(np.float32(off)), float(np.float32(slack_c)), t(md_fine),
-                     float(np.float32(slack_f)), int(edge_pts.shape[0]), int(surf_pts.shape[0]))
+                     float(np.float32(slack_f)), int(edge_pts.shape[0]), int(surf_pts.shape[0]),
+                     t(ref_block(mtan[valid & is_edge])), t(ref_block(nrm[valid & ~is_edge])))
 
 
 def group_channels(scene, tangent_mask, consumed, nbr_idx, nbr_valid,
@@ -287,6 +308,37 @@ _PLAIN_REP_CHUNK = 16
 _PLAIN_MAX_ELEMS = 1 << 21
 
 
+def _coarse_hits(a: list, hi: torch.Tensor, lo: torch.Tensor, block: torch.Tensor, thres2: float,
+                 thres2_strict: float, w_inf: float, w_str: float) -> torch.Tensor:
+    """Per-pose score of the coarse rankers (B1, B4) from their operand:
+    a = [-2tx, -2ty, -2tz, -2w] and |tp4|^2 = hi + lo, each [M, Hg, K].  The
+    4-D squared distance to each representative is the kernel's 8-channel
+    product accumulated in channel order with fused multiply-adds; per point
+    its minimum, then ``w_inf * #(dmin <= thres2) + w_str * #(dmin <=
+    thres2_strict)`` per pose ([M, Hg])."""
+    a0, a3 = a[0][..., None], a[3][..., None]
+    a1, a2 = a[1][..., None].double(), a[2][..., None].double()
+    hi, lo = hi[..., None], lo[..., None]
+    dmin = None
+    for r0 in range(0, block.shape[1], _PLAIN_REP_CHUNK):
+        m = block[:, r0:r0 + _PLAIN_REP_CHUNK]
+        d = a0 * m[0]
+        d = (a1 * m[1].double() + d).float()  # fused multiply-add, see _fma
+        d = (a2 * m[2].double() + d).float()
+        # channel 3: -2w * w_rep is 0 or -2 off^2 (off a power of two), exact
+        # in float32, so its fused multiply-add is a plain add
+        d = ((((d + a3 * m[3]) + m[4]) + m[5]) + hi) + lo  # [M, Hg, K, chunk]
+        d = d.amin(-1)
+        dmin = d if dmin is None else torch.minimum(dmin, d)
+    hit = (dmin <= thres2).float() * w_inf + (dmin <= thres2_strict).float() * w_str
+    return hit.sum(-1)
+
+
+def _bf16_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = x.to(torch.bfloat16).float()
+    return hi, x - hi
+
+
 def score_groups_coarse_plain(groups: torch.Tensor, poses: torch.Tensor, block: torch.Tensor,
                               thres2: float, off: float, thres2_strict: float, w_inf: float,
                               w_str: float) -> torch.Tensor:
@@ -304,7 +356,6 @@ def score_groups_coarse_plain(groups: torch.Tensor, poses: torch.Tensor, block: 
     """
     g, _, k = groups.shape
     hg = poses.shape[1]
-    nc = block.shape[1]
     gc = max(1, _PLAIN_MAX_ELEMS // max(hg * k * _PLAIN_REP_CHUNK, 1))
     out = []
     for s in range(0, g, gc):
@@ -317,37 +368,24 @@ def score_groups_coarse_plain(groups: torch.Tensor, poses: torch.Tensor, block: 
         tp = [_fma(q[3 * i + 2], pz, _fma(q[3 * i], px, q[3 * i + 1] * py)) + q[9 + i]
               for i in range(3)]
         tp2 = _fma(tp[2], tp[2], _fma(tp[0], tp[0], tp[1] * tp[1])) + w * w + inelig
-        hi = tp2.to(torch.bfloat16).float()[..., None]
-        lo = tp2[..., None] - hi
-        a0 = (-2.0 * tp[0])[..., None]
-        a1 = (-2.0 * tp[1])[..., None].double()
-        a2 = (-2.0 * tp[2])[..., None].double()
-        a3 = (-2.0 * w.expand_as(tp2))[..., None]
-        dmin = None
-        for r0 in range(0, nc, _PLAIN_REP_CHUNK):
-            m = block[:, r0:r0 + _PLAIN_REP_CHUNK]
-            d = a0 * m[0]
-            d = (a1 * m[1].double() + d).float()  # fused multiply-add, see _fma
-            d = (a2 * m[2].double() + d).float()
-            # channel 3: -2w * w_rep is 0 or -2 off^2 (off a power of two), exact
-            # in float32, so its fused multiply-add is a plain add
-            d = ((((d + a3 * m[3]) + m[4]) + m[5]) + hi) + lo  # [gc, Hg, K, chunk]
-            d = d.amin(-1)
-            dmin = d if dmin is None else torch.minimum(dmin, d)
-        hit = (dmin <= thres2).float() * w_inf + (dmin <= thres2_strict).float() * w_str
-        out.append(hit.sum(-1))
+        a = [-2.0 * tp[0], -2.0 * tp[1], -2.0 * tp[2], (-2.0 * w).expand_as(tp2)]
+        out.append(_coarse_hits(a, *_bf16_split(tp2), block, thres2, thres2_strict, w_inf,
+                                w_str))
     return torch.cat(out)
 
 
 def check_coarse_parity(got: torch.Tensor, ref: torch.Tensor, groups: torch.Tensor,
                         poses: torch.Tensor, block: torch.Tensor, thres2: float, off: float,
-                        thres2_strict: float, strict_primary: bool) -> tuple[float, int]:
+                        thres2_strict: float, strict_primary: bool,
+                        atol: float = 0.0) -> tuple[float, int]:
     """Hold two coarse rankings of the same inputs to the B1 parity contract.
 
     Both counts (inflated and strict) must agree exactly, except that a pose
     may differ by as many points as it has points whose float64 4-D squared
-    distance lies within 1e-5 of a gate (relative): near a gate, two float32
-    sums taken in different orders may round to either side.  Where the counts
+    distance lies within 1e-5 of a gate (relative), or within ``atol`` of it:
+    near a gate, two float32 sums taken in different orders may round to
+    either side (``linear_band`` gives the ``atol`` of two rankings whose
+    operands are built differently, B1 against B4).  Where the counts
     agree, the scores agree within K float32 ulps (the per-pose sum order).
     ``poses`` are centre-shifted kernel rows.  Raises AssertionError;
     returns (max |got - ref|, number of poses excused by near-gate points).
@@ -372,8 +410,8 @@ def check_coarse_parity(got: torch.Tensor, ref: torch.Tensor, groups: torch.Tens
         w = off * sc[3]
         d2 = ((p[:, None, :] - bk[:3].T[None]) ** 2).sum(-1) + (w[:, None] - bk[3][None]) ** 2
         dmin = d2.min(1).values + (1.0 - sc[4]) * float(_BIG)
-        near = (((dmin - thres2).abs() <= 1e-5 * thres2)
-                | ((dmin - thres2_strict).abs() <= 1e-5 * thres2_strict))
+        near = (((dmin - thres2).abs() <= max(1e-5 * thres2, atol))
+                | ((dmin - thres2_strict).abs() <= max(1e-5 * thres2_strict, atol)))
         if float(diff[g, h]) > 2 * int(near.sum()):
             raise AssertionError(f"pose ({g}, {h}): score {float(got[g, h])} vs "
                                  f"{float(ref[g, h])} with {int(near.sum())} near-gate points")
@@ -417,6 +455,23 @@ def _coarse_launch(groups, poses, block, thres2, off, thres2_strict, w_inf, w_st
     return out
 
 
+def _coarse_inputs(mpack: ModelPack, groups: torch.Tensor, poses: torch.Tensor, dist_thres2,
+                   dist_thres2_strict, block: str, strict_primary: bool):
+    """The coarse rankers' (B1, B4) centre-shifted poses, 4-D block and
+    scalar arguments (thres2, kind offset, thres2_strict, w_inf, w_str)."""
+    k = groups.shape[2]
+    t2 = _f32(dist_thres2)
+    t2s = t2 if dist_thres2_strict is None else _f32(dist_thres2_strict)
+    frac = _f32(1.0 / (k + 1))
+    w_inf, w_str = (frac, 1.0) if strict_primary else (1.0, frac)
+    md = mpack.md_coarse if block == "coarse" else mpack.md_fine
+    poses = poses.clone()
+    poses[..., 9:12] -= mpack.center
+    if groups.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no coarse ranker for device {groups.device}")
+    return poses, md, (t2, mpack.kind_off, t2s, w_inf, w_str)
+
+
 def score_groups_coarse(mpack: ModelPack, groups: torch.Tensor, poses: torch.Tensor,
                         dist_thres2, dist_thres2_strict=None, *, block: str = "coarse",
                         strict_primary: bool = False) -> torch.Tensor:
@@ -429,28 +484,162 @@ def score_groups_coarse(mpack: ModelPack, groups: torch.Tensor, poses: torch.Ten
     strict one.  A CUDA tensor runs the Hopper kernel, a CPU tensor the plain
     version.  Returns [G, Hg] float32.
     """
-    k = groups.shape[2]
-    t2 = _f32(dist_thres2)
-    t2s = t2 if dist_thres2_strict is None else _f32(dist_thres2_strict)
-    frac = _f32(1.0 / (k + 1))
-    w_inf, w_str = (frac, 1.0) if strict_primary else (1.0, frac)
-    md = mpack.md_coarse if block == "coarse" else mpack.md_fine
-    poses = poses.clone()
-    poses[..., 9:12] -= mpack.center
+    poses, md, args = _coarse_inputs(mpack, groups, poses, dist_thres2, dist_thres2_strict,
+                                     block, strict_primary)
     if groups.device.type == "cuda":
-        return _coarse_launch(groups, poses, md, t2, mpack.kind_off, t2s, w_inf, w_str)
-    if groups.device.type != "cpu":
-        raise ValueError(f"no coarse ranker for device {groups.device}")
-    return score_groups_coarse_plain(groups, poses, md, t2, mpack.kind_off, t2s, w_inf, w_str)
+        return _coarse_launch(groups, poses, md, *args)
+    return score_groups_coarse_plain(groups, poses, md, *args)
 
 
 # ---------------------------------------------------------------------------
-# B2: the exact two-minimum count ranker
+# B4: the pose-linearised coarse ranker
+# ---------------------------------------------------------------------------
+
+COARSE_LINEAR_RANK = _LaunchCounter()
+_LIN_C = 7  # statics channels: [x, y, z, p2_hi, p2_lo, 1, w]
+
+
+def coarse_linear_rows(poses: torch.Tensor) -> torch.Tensor:
+    """Per-pose coefficient rows W [..., 8, 7] of the linearised coarse ranker
+    (the JAX caller's ``wm``, score_pallas.py:1057-1077), from centre-shifted
+    kernel rows [..., 16].
+
+    Row i < 3 holds -2 R_i on the xyz statics and -2 t_i on the ones channel,
+    row 3 -2 on w, rows 4 and 5 a 1 on the ones channel, row 6
+    tp^2 = 2 p . R^T t + p2_hi + p2_lo + |t|^2; row 7 stays zero.  R^T t and
+    |t|^2 are FMA chains in XLA's order, so the rows equal the JAX caller's
+    bit for bit.  The kernel and its plain version both consume these rows.
+    """
+    r = poses[..., :9].unflatten(-1, (3, 3))
+    t = poses[..., 9:12]
+    rt_t = torch.stack([_fma(r[..., 2, i], t[..., 2], _fma(r[..., 1, i], t[..., 1],
+                                                          r[..., 0, i] * t[..., 0]))
+                        for i in range(3)], -1)
+    t2n = _fma(t[..., 2], t[..., 2], _fma(t[..., 1], t[..., 1], t[..., 0] * t[..., 0]))
+    wm = torch.zeros(poses.shape[:-1] + (8, _LIN_C), dtype=torch.float32, device=poses.device)
+    wm[..., 0:3, 0:3] = -2.0 * r
+    wm[..., 0:3, 5] = -2.0 * t
+    wm[..., 3, 6] = -2.0
+    wm[..., 4, 5] = 1.0
+    wm[..., 5, 5] = 1.0
+    wm[..., 6, 0:3] = 2.0 * rt_t
+    wm[..., 6, 3] = 1.0
+    wm[..., 6, 4] = 1.0
+    wm[..., 6, 5] = t2n
+    return wm
+
+
+def score_groups_coarse_linear_plain(groups: torch.Tensor, wrows: torch.Tensor,
+                                     block: torch.Tensor, thres2: float, off: float,
+                                     thres2_strict: float, w_inf: float,
+                                     w_str: float) -> torch.Tensor:
+    """Plain PyTorch version of the linearised coarse ranker, in the TPU
+    kernel's order of float32 operations.
+
+    groups [G, 8, K]; wrows [G, Hg, 8, 7] (``coarse_linear_rows``); block
+    [8, Nc].  Per group the statics S = [x, y, z, p2_hi, p2_lo, 1, w] with
+    p2 = |p|^2 + w^2 + inelig split in bfloat16; per pose and point rows 0-3
+    and 6 of A = W S, each an FMA chain over the 7 channels in channel order,
+    row 6 (tp^2) split in bfloat16; then B1's sweep and score
+    (``_coarse_hits``).  Returns [G, Hg] float32.
+    """
+    g, _, k = groups.shape
+    hg = wrows.shape[1]
+    gc = max(1, _PLAIN_MAX_ELEMS // max(hg * k * _PLAIN_REP_CHUNK, 1))
+    out = []
+    for s in range(0, g, gc):
+        sc = groups[s:s + gc]
+        x, y, z = (sc[:, None, c, :] for c in range(3))  # [gc, 1, K]
+        w = off * sc[:, None, 3, :]
+        inelig = (1.0 - sc[:, None, 4, :]) * float(_BIG)
+        p2 = _fma(z, z, _fma(x, x, y * y)) + w * w + inelig
+        statics = [x, y, z, *_bf16_split(p2), torch.ones_like(x), w]
+        wr = wrows[s:s + gc]
+
+        def row(i):
+            acc = wr[:, :, i, 0, None] * statics[0]
+            for c in range(1, _LIN_C):
+                acc = _fma(wr[:, :, i, c, None], statics[c], acc)
+            return acc  # [gc, Hg, K]
+
+        out.append(_coarse_hits([row(i) for i in range(4)], *_bf16_split(row(6)), block,
+                                thres2, thres2_strict, w_inf, w_str))
+    return torch.cat(out)
+
+
+def linear_band(groups: torch.Tensor, poses: torch.Tensor, off: float,
+                block: torch.Tensor) -> float:
+    """An absolute bound on how far two coarse rankings of one (pose, point)
+    pair may round apart when one builds its operand from the pose (B1) and
+    the other from the linearised rows (B4): 64 float32 ulps of the largest
+    squared magnitude either sums, (|p| + |t|)^2 + off^2 + the block's
+    largest |p4|^2.  ``check_coarse_parity``'s ``atol`` for B4 against B1."""
+    el = groups[:, 4] > 0.5
+    p = torch.linalg.vector_norm(groups[:, :3], dim=1)
+    pmax = float(torch.where(el, p, 0.0).max()) if el.any() else 0.0
+    tmax = float(torch.linalg.vector_norm(poses[..., 9:12], dim=-1).max())
+    real = (block[4] + block[5]) < 1e11
+    m4 = float((block[4] + block[5])[real].max()) if real.any() else 0.0
+    return 64.0 * float(np.finfo(np.float32).eps) * ((pmax + tmax) ** 2 + off * off + m4)
+
+
+def _coarse_linear_launch(groups, wrows, block, thres2, off, thres2_strict, w_inf, w_str):
+    """Launch ``csrc/coarse_linear_rank.cu`` on the current stream (CUDA tensors only)."""
+    for name, t, dims in (("groups", groups, 3), ("wrows", wrows, 4), ("block", block, 2)):
+        if t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != dims:
+            raise ValueError(f"{name}: need a float32 CUDA tensor of rank {dims}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    g, ch, k = groups.shape
+    hg = wrows.shape[1]
+    nc = block.shape[1]
+    if ch != 8 or wrows.shape != (g, hg, 8, _LIN_C) or block.shape[0] != 8:
+        raise ValueError(f"shapes groups {tuple(groups.shape)} wrows {tuple(wrows.shape)} "
+                         f"block {tuple(block.shape)}")
+    if not (groups.device == wrows.device == block.device):
+        raise ValueError("groups, wrows and block must share one device")
+    lib = load_coarse_linear_rank()
+    groups, wrows, block = groups.contiguous(), wrows.contiguous(), block.contiguous()
+    out = torch.empty((g, hg), dtype=torch.float32, device=groups.device)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(groups.device).cuda_stream
+    err = lib.coarse_linear_rank_launch(
+        groups.data_ptr(), wrows.data_ptr(), block.data_ptr(), out.data_ptr(),
+        g, hg, k, nc, ctypes.c_float(thres2), ctypes.c_float(off),
+        ctypes.c_float(thres2_strict), ctypes.c_float(w_inf), ctypes.c_float(w_str), stream)
+    if err != 0:
+        raise RuntimeError("coarse_linear_rank kernel launch failed: "
+                           f"{lib.coarse_linear_rank_error_string(err).decode()}")
+    COARSE_LINEAR_RANK.launches += 1
+    return out
+
+
+def score_groups_coarse_linear(mpack: ModelPack, groups: torch.Tensor, poses: torch.Tensor,
+                               dist_thres2, dist_thres2_strict=None, *, block: str = "coarse",
+                               strict_primary: bool = False) -> torch.Tensor:
+    """Linearised drop-in for :func:`score_groups_coarse` (TPU kernel B4): the
+    same contract, arguments and output, with the operand built from
+    per-pose coefficient rows (``coarse_linear_rows``) and per-point statics.
+    A CUDA tensor runs the Hopper kernel, a CPU tensor the plain version.
+    Returns [G, Hg] float32.
+    """
+    poses, md, args = _coarse_inputs(mpack, groups, poses, dist_thres2, dist_thres2_strict,
+                                     block, strict_primary)
+    wrows = coarse_linear_rows(poses)
+    if groups.device.type == "cuda":
+        return _coarse_linear_launch(groups, wrows, md, *args)
+    return score_groups_coarse_linear_plain(groups, wrows, md, *args)
+
+
+# ---------------------------------------------------------------------------
+# B2 and B3: the exact two-minimum rankers (count and full mode)
 # ---------------------------------------------------------------------------
 
 EXACT_RANK = _LaunchCounter()
-
-_B3 = "ranking_mode='full' needs the orientation-weighted kernel B3 (ROADMAP queue B, B3)"
+FULL_RANK = _LaunchCounter()
+_TIE_EPS = np.float32(1e-6)  # the TPU kernel's argmin tie tolerance on E (params :578)
+# shared memory one block may hold on an H100 (227 KB, cudaFuncSetAttribute)
+_SMEM_MAX = 232448
 
 
 def _inv2t(thres2: float) -> float:
@@ -463,28 +652,53 @@ def exact_blocks(mpack: ModelPack) -> tuple[torch.Tensor, torch.Tensor]:
     """The compact edge and surface blocks cut to their model points (views).
 
     The FAR padding columns of a block can never be an eligible point's
-    nearest neighbour, so B2 sweeps only real columns; a block without model
-    points keeps one FAR column, which gates as no neighbour.
+    nearest neighbour, so B2 and B3 sweep only real columns; a block without
+    model points keeps one FAR column, which gates as no neighbour.
     """
     return (mpack.md_edge[:, :max(mpack.n_edge_cols, 1)],
             mpack.md_surf[:, :max(mpack.n_surf_cols, 1)])
 
 
+def ref_blocks(mpack: ModelPack) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference vectors of ``exact_blocks``' columns (views), for B3."""
+    return (mpack.mref_edge[:, :max(mpack.n_edge_cols, 1)],
+            mpack.mref_surf[:, :max(mpack.n_surf_cols, 1)])
+
+
+def _block_e(a: list, m: torch.Tensor) -> torch.Tensor:
+    """E = -2 tp . m + |m|^2 against block columns m [8, C], in the TPU
+    kernel's order: the channel product as a fused multiply-add chain
+    (x, y, z), then |m|^2 added.  a: [-2tx, -2ty, -2tz], each [...];
+    returns [..., C]."""
+    e = a[0][..., None] * m[0]
+    e = (a[1][..., None].double() * m[1].double() + e).float()  # fused multiply-add, see _fma
+    e = (a[2][..., None].double() * m[2].double() + e).float()
+    return e + m[3]
+
+
 def _block_min(a: list, block: torch.Tensor) -> torch.Tensor:
-    """Per-point min over a block's columns of E = -2 tp . m + |m|^2, in the
-    TPU kernel's order: the channel product as a fused multiply-add chain
-    (x, y, z), then |m|^2 added.  a: [-2tx, -2ty, -2tz], each [M, Hg]."""
-    a0 = a[0][..., None]
-    a1, a2 = a[1][..., None].double(), a[2][..., None].double()
+    """Per-point min over a block's columns of ``_block_e``, [M, Hg]."""
     emin = None
     for r0 in range(0, block.shape[1], _PLAIN_REP_CHUNK):
-        m = block[:, r0:r0 + _PLAIN_REP_CHUNK]
-        e = a0 * m[0]
-        e = (a1 * m[1].double() + e).float()  # fused multiply-add, see _fma
-        e = (a2 * m[2].double() + e).float()
-        e = (e + m[3]).amin(-1)
+        e = _block_e(a, block[:, r0:r0 + _PLAIN_REP_CHUNK]).amin(-1)
         emin = e if emin is None else torch.minimum(emin, e)
     return emin
+
+
+def _orientation_weight(a: list, tr: list, thr: torch.Tensor, block: torch.Tensor,
+                        refs: torch.Tensor) -> torch.Tensor:
+    """B3's w_at_min for counted points: |mean over the tie set E <= thr of
+    tr . mref| over one own-kind block (the mean divided in float32).  a, tr:
+    lists of 3 [M]-tensors; thr [M]; block [8, C], refs [3, C]."""
+    wsum = torch.zeros(thr.shape, dtype=torch.float64, device=thr.device)
+    ties = torch.zeros(thr.shape, dtype=torch.int64, device=thr.device)
+    for r0 in range(0, block.shape[1], _PLAIN_REP_CHUNK):
+        sel = _block_e(a, block[:, r0:r0 + _PLAIN_REP_CHUNK]) <= thr[:, None]
+        mr = refs[:, r0:r0 + _PLAIN_REP_CHUNK]
+        w = _fma(tr[2][:, None], mr[2], _fma(tr[1][:, None], mr[1], tr[0][:, None] * mr[0]))
+        wsum += torch.where(sel, w, 0.0).double().sum(-1)
+        ties += sel.sum(-1)
+    return (wsum.float() / torch.clamp(ties, min=1).float()).abs()
 
 
 def score_groups_exact_plain(groups: torch.Tensor, poses: torch.Tensor, md_edge: torch.Tensor,
@@ -504,6 +718,30 @@ def score_groups_exact_plain(groups: torch.Tensor, poses: torch.Tensor, md_edge:
     add nothing, so only eligible ones are evaluated.  Returns (score [G, Hg]
     float32, count [G, Hg] int32); without either knob the score is the count.
     """
+    return _exact_plain(groups, poses, md_edge, md_surf, None, thres2, inv2t, weighted, negative)
+
+
+def score_groups_full_plain(groups: torch.Tensor, poses: torch.Tensor, md_edge: torch.Tensor,
+                            md_surf: torch.Tensor, mref_edge: torch.Tensor,
+                            mref_surf: torch.Tensor, thres2: float, inv2t: float,
+                            weighted: bool = False,
+                            negative: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the orientation-weighted ranker (B3), in the
+    TPU kernel's order of float32 operations.
+
+    As ``score_groups_exact_plain``, with mref_edge [3, Ne] / mref_surf
+    [3, Ns] the blocks' reference vectors.  Each counted point adds
+    w_at_min (times exp(-dk * inv2t) when ``weighted``): the mean over the
+    tie set of the own-kind model points whose E lies within 1e-6 of the
+    own-kind minimum (the threshold rounded to float32) of tr . mref, with
+    tr = R ref_point an FMA chain, taken as an absolute value.  Returns
+    (score [G, Hg] float32, count [G, Hg] int32).
+    """
+    return _exact_plain(groups, poses, md_edge, md_surf, (mref_edge, mref_surf), thres2, inv2t,
+                        weighted, negative)
+
+
+def _exact_plain(groups, poses, md_edge, md_surf, refs, thres2, inv2t, weighted, negative):
     g, _, k = groups.shape
     hg = poses.shape[1]
     gi, ki = (groups[:, 4] > 0.5).nonzero(as_tuple=True)
@@ -511,6 +749,8 @@ def score_groups_exact_plain(groups: torch.Tensor, poses: torch.Tensor, md_edge:
     count = torch.zeros((g, hg), dtype=torch.int32, device=groups.device)
     pos = torch.zeros((g, hg), dtype=torch.float64, device=groups.device)
     neg = torch.zeros_like(pos)
+    signed = refs is not None or weighted or negative
+    eps = torch.tensor(_TIE_EPS, device=groups.device)
     mc = max(1, _PLAIN_MAX_ELEMS // max(hg * _PLAIN_REP_CHUNK, 1))
     for s in range(0, pts.shape[0], mc):
         p, gs = pts[s:s + mc], gi[s:s + mc]
@@ -520,21 +760,36 @@ def score_groups_exact_plain(groups: torch.Tensor, poses: torch.Tensor, md_edge:
               for i in range(3)]
         tp2 = _fma(tp[2], tp[2], _fma(tp[0], tp[0], tp[1] * tp[1]))
         a = [-2.0 * t for t in tp]
-        d2_e = tp2 + _block_min(a, md_edge)
-        d2_s = tp2 + _block_min(a, md_surf)
-        kind = p[:, 3, None] > 0.5
+        emin_e, emin_s = _block_min(a, md_edge), _block_min(a, md_surf)
+        d2_e, d2_s = tp2 + emin_e, tp2 + emin_s
+        kind = (p[:, 3, None] > 0.5).expand_as(tp2)
         dk = torch.where(kind, d2_e, d2_s)
         do = torch.where(kind, d2_s, d2_e)
         ok = (dk <= thres2) & (dk <= do)
         count.index_add_(0, gs, ok.to(torch.int32))
-        if weighted or negative:
-            w_pos = torch.exp(-dk * inv2t) if weighted else torch.ones_like(dk)
-            pos.index_add_(0, gs, torch.where(ok, w_pos, 0.0).double())
-            if negative:
-                wrong = (do <= thres2) & (do < dk)
-                w_neg = torch.exp(-do * inv2t) if weighted else torch.ones_like(do)
-                neg.index_add_(0, gs, torch.where(wrong, w_neg, 0.0).double())
-    score = (pos - neg).float() if (weighted or negative) else count.float()
+        if not signed:
+            continue
+        term = torch.exp(-dk * inv2t) if weighted else torch.ones_like(dk)
+        if refs is not None:
+            wam = torch.zeros_like(dk)
+            thr = torch.where(kind, emin_e, emin_s) + eps
+            for own, blk, ref in ((kind, md_edge, refs[0]), (~kind, md_surf, refs[1])):
+                pi, hi = (ok & own).nonzero(as_tuple=True)
+                if pi.numel() == 0:
+                    continue
+                qs = [qi[pi, hi] for qi in q[:9]]
+                rx, ry, rz = p[pi, 5], p[pi, 6], p[pi, 7]
+                tr = [_fma(qs[3 * i + 2], rz, _fma(qs[3 * i], rx, qs[3 * i + 1] * ry))
+                      for i in range(3)]
+                wam[pi, hi] = _orientation_weight([ai[pi, hi] for ai in a], tr, thr[pi, hi],
+                                                  blk, ref)
+            term = wam * term
+        pos.index_add_(0, gs, torch.where(ok, term, 0.0).double())
+        if negative:
+            wrong = (do <= thres2) & (do < dk)
+            w_neg = torch.exp(-do * inv2t) if weighted else torch.ones_like(do)
+            neg.index_add_(0, gs, torch.where(wrong, w_neg, 0.0).double())
+    score = (pos - neg).float() if signed else count.float()
     return score, count
 
 
@@ -580,38 +835,61 @@ def check_exact_parity(got: tuple, ref: tuple, groups: torch.Tensor, poses: torc
     return (float(sdiff.max()) if sdiff.numel() else 0.0), excused
 
 
-def _exact_launch(groups, poses, md_edge, md_surf, thres2, inv2t, weighted, negative):
-    """Launch ``csrc/exact_rank.cu`` on the current stream (CUDA tensors only)."""
-    for name, t, dims in (("groups", groups, 3), ("poses", poses, 3), ("md_edge", md_edge, 2),
-                          ("md_surf", md_surf, 2)):
+def _exact_launch(groups, poses, md_edge, md_surf, thres2, inv2t, weighted, negative,
+                  refs=None):
+    """Launch ``csrc/exact_rank.cu`` (B2), or with ``refs`` = (mref_edge,
+    mref_surf) ``csrc/full_rank.cu`` (B3), on the current stream (CUDA
+    tensors only)."""
+    named = [("groups", groups, 3), ("poses", poses, 3), ("md_edge", md_edge, 2),
+             ("md_surf", md_surf, 2)]
+    if refs is not None:
+        named += [("mref_edge", refs[0], 2), ("mref_surf", refs[1], 2)]
+    for name, t, dims in named:
         if t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != dims:
             raise ValueError(f"{name}: need a float32 CUDA tensor of rank {dims}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if t.device != groups.device:
+            raise ValueError("groups, poses and blocks must share one device")
     g, ch, k = groups.shape
     hg = poses.shape[1]
+    ne, ns = md_edge.shape[1], md_surf.shape[1]
     if ch != 8 or poses.shape != (g, hg, 16) or md_edge.shape[0] < 4 or md_surf.shape[0] < 4:
         raise ValueError(f"shapes groups {tuple(groups.shape)} poses {tuple(poses.shape)} "
                          f"md_edge {tuple(md_edge.shape)} md_surf {tuple(md_surf.shape)}")
-    if md_edge.stride(1) != 1 or md_surf.stride(1) != 1:
+    if refs is not None and (refs[0].shape[0] < 3 or refs[0].shape[1] != ne
+                             or refs[1].shape[0] < 3 or refs[1].shape[1] != ns):
+        raise ValueError(f"reference blocks {tuple(refs[0].shape)} {tuple(refs[1].shape)} do "
+                         f"not match the blocks' {ne} / {ns} columns")
+    if any(t.stride(1) != 1 for _, t, _ in named[2:]):
         raise ValueError("model blocks need unit column stride")
-    if not (groups.device == poses.device == md_edge.device == md_surf.device):
-        raise ValueError("groups, poses and blocks must share one device")
-    lib = load_exact_rank()
+    # B2 stages (ne + ns + k) float4 of blocks and points, B3 as many again
+    smem = (ne + ns + k) * 16 * (2 if refs is not None else 1)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"{ne} + {ns} model points and K = {k} need {smem} bytes of shared "
+                         f"memory per block, above the card's {_SMEM_MAX}: pack the model "
+                         "with fewer max_points or rank fewer score_neighbors")
     groups, poses = groups.contiguous(), poses.contiguous()
     score = torch.empty((g, hg), dtype=torch.float32, device=groups.device)
     count = torch.empty((g, hg), dtype=torch.int32, device=groups.device)
     if score.numel() == 0:
         return score, count
     stream = torch.cuda.current_stream(groups.device).cuda_stream
-    err = lib.exact_rank_launch(
-        groups.data_ptr(), poses.data_ptr(), md_edge.data_ptr(), md_edge.shape[1],
-        md_edge.stride(0), md_surf.data_ptr(), md_surf.shape[1], md_surf.stride(0),
-        score.data_ptr(), count.data_ptr(), g, hg, k, ctypes.c_float(thres2),
-        ctypes.c_float(inv2t), int(weighted), int(negative), stream)
+    head = (groups.data_ptr(), poses.data_ptr(), md_edge.data_ptr(), ne, md_edge.stride(0),
+            md_surf.data_ptr(), ns, md_surf.stride(0))
+    tail = (score.data_ptr(), count.data_ptr(), g, hg, k, ctypes.c_float(thres2),
+            ctypes.c_float(inv2t))
+    if refs is None:
+        lib, name, counter = load_exact_rank(), "exact_rank", EXACT_RANK
+        err = lib.exact_rank_launch(*head, *tail, int(weighted), int(negative), stream)
+    else:
+        lib, name, counter = load_full_rank(), "full_rank", FULL_RANK
+        err = lib.full_rank_launch(*head, refs[0].data_ptr(), refs[0].stride(0),
+                                   refs[1].data_ptr(), refs[1].stride(0), *tail,
+                                   ctypes.c_float(float(_TIE_EPS)), int(weighted), int(negative), stream)
     if err != 0:
-        raise RuntimeError("exact_rank kernel launch failed: "
-                           f"{lib.exact_rank_error_string(err).decode()}")
-    EXACT_RANK.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{getattr(lib, name + '_error_string')(err).decode()}")
+    counter.launches += 1
     return score, count
 
 
@@ -619,30 +897,34 @@ def score_groups_exact(mpack: ModelPack, groups: torch.Tensor, poses: torch.Tens
                        dist_thres2, *, mode: str = "count", weighted_distance: bool = False,
                        negative_scores: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact-NN ranking of all G*Hg poses against the compact edge and surface
-    blocks (TPU kernel B2, ``score_groups_pallas`` in count mode).
+    blocks (``score_groups_pallas``): TPU kernel B2 in count mode, B3 in full
+    mode.
 
     groups [G, 8, K]; poses [G, Hg, 16] (``poses_to_rows`` layout, shifted
     here by ``-mpack.center``).  Returns (score [G, Hg] float32, count
-    [G, Hg] int32): the score is the count, or with ``weighted_distance`` /
-    ``negative_scores`` the weighted/signed sum (impl/scene.hpp:468-475),
-    while the count stays the plain correspondence count.  A CUDA tensor runs
-    the Hopper kernel, a CPU tensor the plain version; ``mode="full"`` needs
-    kernel B3 and raises.
+    [G, Hg] int32).  In count mode the score is the count, or with
+    ``weighted_distance`` / ``negative_scores`` the weighted/signed sum
+    (impl/scene.hpp:468-475); in full mode every counted point's term is
+    weighted by its orientation agreement with the nearest own-kind model
+    point (impl/scene.hpp:469-489).  The count stays the plain correspondence
+    count.  A CUDA tensor runs the Hopper kernel, a CPU tensor the plain
+    version.
     """
-    if mode != "count":
-        raise NotImplementedError(_B3)
+    if mode not in ("count", "full"):
+        raise ValueError(f"mode must be 'count' or 'full', got {mode!r}")
     t2 = _f32(dist_thres2)
     inv2t = _inv2t(t2)
     md_edge, md_surf = exact_blocks(mpack)
+    refs = ref_blocks(mpack) if mode == "full" else None
     poses = poses.clone()
     poses[..., 9:12] -= mpack.center
     if groups.device.type == "cuda":
         return _exact_launch(groups, poses, md_edge, md_surf, t2, inv2t, weighted_distance,
-                             negative_scores)
+                             negative_scores, refs)
     if groups.device.type != "cpu":
         raise ValueError(f"no exact ranker for device {groups.device}")
-    return score_groups_exact_plain(groups, poses, md_edge, md_surf, t2, inv2t,
-                                    weighted_distance, negative_scores)
+    return _exact_plain(groups, poses, md_edge, md_surf, refs, t2, inv2t, weighted_distance,
+                        negative_scores)
 
 
 # ---------------------------------------------------------------------------
@@ -671,27 +953,23 @@ def score_groups_two_phase(mpack: ModelPack, groups: torch.Tensor, poses: torch.
     """Early-drop analog: rank every pose on the strided subsample, keep the
     per-group top 1/keep_frac (at least ``pose_tile``), re-rank the survivors.
 
-    Phase 1 sweeps the coarse 4-D block at the slack-inflated gate (B1,
-    ``coarse_model``) or the exact compact blocks at the strict gate (B2).
-    Phase 2 sweeps the fine 4-D block (B1, ``fine_coarse`` in count mode
-    without the weighted/negative knobs) or the exact blocks (B2, with both
-    knobs passed through).  Invalid hypotheses (``ok`` False) rank at -1
-    before the keep, so they never take a slot a valid pose needs; dropped
-    poses score -1, or -BIG under ``negative_scores``, whose signed scores
-    can fall below -1.  ``mode="full"`` (B3) and ``coarse_linear`` (B4)
-    raise.  Returns (scores, counts) [G, Hg].
+    Phase 1 sweeps the coarse 4-D block at the slack-inflated gate (B1, or
+    B4 with ``coarse_linear``; ``coarse_model``) or the exact compact blocks
+    at the strict gate (B2).  Phase 2 sweeps the fine 4-D block (B1 or B4,
+    ``fine_coarse`` in count mode without the weighted/negative knobs) or
+    the exact blocks in ``mode`` (B2 or B3, with both knobs passed through).
+    Invalid hypotheses (``ok`` False) rank at -1 before the keep, so they
+    never take a slot a valid pose needs; dropped poses score -1, or -BIG
+    under ``negative_scores``, whose signed scores can fall below -1.
+    Returns (scores, counts) [G, Hg].
     """
-    if mode != "count":
-        raise NotImplementedError(_B3)
-    if coarse_linear:
-        raise NotImplementedError(
-            "the linearised coarse kernel is not ported (ROADMAP queue B, B4)")
     g, hg = poses.shape[:2]
     keep = two_phase_keep(hg, keep_frac, pose_tile)
     coarse = groups[:, :, ::coarse_stride].contiguous()
+    block_rank = score_groups_coarse_linear if coarse_linear else score_groups_coarse
     if coarse_model:
-        s1 = score_groups_coarse(mpack, coarse, poses, _inflate(dist_thres2, mpack.coarse_slack),
-                                 dist_thres2)
+        s1 = block_rank(mpack, coarse, poses, _inflate(dist_thres2, mpack.coarse_slack),
+                        dist_thres2)
     else:
         s1, _ = score_groups_exact(mpack, coarse, poses, dist_thres2)
     if ok is not None:
@@ -700,13 +978,12 @@ def score_groups_two_phase(mpack: ModelPack, groups: torch.Tensor, poses: torch.
     kept = torch.sort(s1, dim=1, descending=True, stable=True)[1][:, :keep]
     poses_kept = torch.gather(poses, 1, kept[..., None].expand(-1, -1, poses.shape[2]))
     fine_groups = groups if fine_stride == 1 else groups[:, :, ::fine_stride].contiguous()
-    if fine_coarse and not (weighted_distance or negative_scores):
-        s2 = score_groups_coarse(mpack, fine_groups, poses_kept,
-                                 _inflate(dist_thres2, mpack.fine_slack), dist_thres2,
-                                 block="fine", strict_primary=fine_strict)
+    if fine_coarse and mode == "count" and not (weighted_distance or negative_scores):
+        s2 = block_rank(mpack, fine_groups, poses_kept, _inflate(dist_thres2, mpack.fine_slack),
+                        dist_thres2, block="fine", strict_primary=fine_strict)
         c2 = s2.to(torch.int64)
     else:
-        s2, c2 = score_groups_exact(mpack, fine_groups, poses_kept, dist_thres2,
+        s2, c2 = score_groups_exact(mpack, fine_groups, poses_kept, dist_thres2, mode=mode,
                                     weighted_distance=weighted_distance,
                                     negative_scores=negative_scores)
         c2 = c2.to(torch.int64)
