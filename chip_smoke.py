@@ -17,8 +17,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
               version at the full-mode phase 2.  Integer counts must agree
               exactly, except points whose float64 distance lies within
               1e-5 * gate of a gate (B4 against B1: within
-              score_kernel.linear_band); coarse tiebreaks within K float32
-              ulps, B3 scores within 1e-5 relative.
+              score_kernel.linear_band), and B1 and B4 must agree with their
+              plain versions with no such excuse; coarse tiebreaks within K
+              float32 ulps, B3 scores within 1e-5 relative.  One B1 or B4
+              wrapper call must run exactly one device kernel
+              (torch.profiler).  B1's and B4's bounds count own-kind
+              evaluations (what their kernels sweep) and each pose's
+              operand arithmetic, with the all-representative count
+              printed beside, and their lines
+              carry the ptxas registers and spills.
 4. main131  — compile the 2400-point box model, build the 131072-point
               touching-fog recall scene (seed 0), prepare it, and run
               find_all with the recall-protocol settings twice (first and
@@ -103,6 +110,28 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_kernels(fn, tries: int = 3) -> list:
+    """Names of the device kernels and copies that one call of ``fn`` runs.
+
+    The profiler now and then returns a capture without any device record
+    (seen once in three runs on the H100, for a call whose output was checked);
+    such an empty capture is taken again, up to ``tries`` captures in all.  A
+    capture with records is returned as it is."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def _bound(instr: float, nbytes: float) -> tuple[float, str]:
@@ -357,11 +386,11 @@ def main() -> int:
                  kbuild.load_coarse_linear_rank):
         load()
     walls["build"] = time.perf_counter() - t0
+    ptxas = {k: " | ".join(ln.strip() for ln in kbuild.BUILD_LOG.get(k, "").splitlines()
+                           if "registers" in ln or "spill" in ln) or "not built in this process"
+             for k in sources}
     for k in sources:
-        info = [ln.strip() for ln in kbuild.BUILD_LOG.get(k, "").splitlines()
-                if "registers" in ln or "spill" in ln]
-        _log(f"[build] {k}.cu: nvcc {kbuild.BUILD_SECONDS.get(k, 0.0):.2f} s | {' | '.join(info)} "
-             f"| {smi}")
+        _log(f"[build] {k}.cu: nvcc {kbuild.BUILD_SECONDS.get(k, 0.0):.2f} s | {ptxas[k]} | {smi}")
     _log(f"[build] {len(sources)} kernels {walls['build']:.2f} s wall (one nvcc each, in "
          f"parallel) | {smi}")
 
@@ -407,45 +436,51 @@ def main() -> int:
         shifted = pr.clone()
         shifted[..., 9:12] -= mpack.center
         wrows = sk.coarse_linear_rows(shifted)
-        block = mpack.md_coarse if block_name == "coarse" else mpack.md_fine
         slack = mpack.coarse_slack if block_name == "coarse" else mpack.fine_slack
         t2c = sk._inflate(t2, slack)
-        k = grp.shape[2]
-        frac = sk._f32(1.0 / (k + 1))
-        w_inf, w_str = (frac, 1.0) if strict else (1.0, frac)
+        block, n_edge, n_reps, args = sk._coarse_inputs(mpack, grp, t2c, t2, block_name, strict)
         parity = (grp, shifted, block, t2c, mpack.kind_off, t2, strict)
-        # the work this run's data needs: eligible points x poses x real reps,
-        # 7 fp32 instructions each (1 mul, 3 FMA, 2 add for the rep's |p4|^2
-        # hi/lo, 1 min; the point's own |tp4|^2 is added once per point); B4
-        # adds its operand build, 35 FMAs per (pose, point)
-        n_el = (grp[:, 4] > 0.5).sum(1).double()
-        reps = int(((block[4] + block[5]) < 1e11).sum())
-        evals = float((n_el * n_poses).sum()) * reps
+        # the work this run's data needs: every eligible point against its own
+        # kind's real representatives, per pose, 7 fp32 instructions each (1
+        # mul, 3 FMA, 2 add for the rep's |p4|^2 hi/lo, 1 min), plus the
+        # arithmetic each (pose, eligible point) pair needs once: B1 20 (tp = R
+        # p + t 12, |tp4|^2 5, its hi/lo added after the minimum 3; the exact
+        # -2 scaling is not counted, as the representatives could carry it), B4
+        # 21 (its operand rows 0-2 12, row 6 6, hi/lo 3); per pose B1 3 (t - c),
+        # B4 15 (t - c, R^T t, |t|^2).  The all-representative count (every
+        # eligible point against every real representative) is printed beside.
+        el = grp[:, 4] > 0.5
+        n_el_e = (el & (grp[:, 3] > 0.5)).sum(1).double()
+        n_el = el.sum(1).double()
+        evals = float((n_el_e * n_edge + (n_el - n_el_e) * (n_reps - n_edge)).sum()) * n_poses
+        evals_all = float(n_el.sum()) * n_reps * n_poses
+        pairs = float(n_el.sum()) * n_poses
         nbytes = _nbytes(grp, pr, block) + 4 * grp.shape[0] * n_poses
         b1_out = None
-        # (wrapper call, launch alone, plain version, instructions, records): the
-        # wrapper adds the centre shift and, for B4, the coefficient rows
-        for tag, kernel, launch, plain, instr, records in (
-                ("B1", lambda: sk.score_groups_coarse(mpack, grp, pr, t2c, t2, block=block_name,
-                                                      strict_primary=strict),
-                 lambda: sk._coarse_launch(grp, shifted, block, t2c, mpack.kind_off, t2, w_inf,
-                                           w_str),
-                 lambda: sk.score_groups_coarse_plain(grp, shifted, block, t2c, mpack.kind_off,
-                                                      t2, w_inf, w_str),
-                 7.0 * evals, b1_phases),
-                ("B4", lambda: sk.score_groups_coarse_linear(mpack, grp, pr, t2c, t2,
-                                                             block=block_name,
-                                                             strict_primary=strict),
-                 lambda: sk._coarse_linear_launch(grp, wrows, block, t2c, mpack.kind_off, t2,
-                                                  w_inf, w_str),
-                 lambda: sk.score_groups_coarse_linear_plain(grp, wrows, block, t2c,
-                                                             mpack.kind_off, t2, w_inf, w_str),
-                 7.0 * evals + 35.0 * float((n_el * n_poses).sum()), b4_phases)):
+        # (source, wrapper call, launch alone, plain version, instructions, records)
+        for tag, src_name, kernel, launch, plain, instr, records in (
+                ("B1", "coarse_rank",
+                 lambda: sk.score_groups_coarse(mpack, grp, pr, t2c, t2, block=block_name,
+                                                strict_primary=strict),
+                 lambda: sk._coarse_launch(grp, pr, block, n_edge, n_reps, mpack.center_xyz,
+                                           *args),
+                 lambda: sk.score_groups_coarse_plain(grp, shifted, block, *args),
+                 7.0 * evals + 20.0 * pairs + 3.0 * grp.shape[0] * n_poses, b1_phases),
+                ("B4", "coarse_linear_rank",
+                 lambda: sk.score_groups_coarse_linear(mpack, grp, pr, t2c, t2,
+                                                       block=block_name, strict_primary=strict),
+                 lambda: sk._coarse_linear_launch(grp, pr, block, n_edge, n_reps,
+                                                  mpack.center_xyz, *args),
+                 lambda: sk.score_groups_coarse_linear_plain(grp, wrows, block, *args),
+                 7.0 * evals + 21.0 * pairs + 15.0 * grp.shape[0] * n_poses, b4_phases)):
             got = kernel()
             torch.cuda.synchronize()
             ref = plain()
             torch.cuda.synchronize()
             err, n_near = sk.check_coarse_parity(got, ref, *parity)
+            if n_near:
+                raise AssertionError(f"[{tag}] {phase}: {n_near} poses differ from the plain "
+                                     "version")
             extra = ""
             if b1_out is None:
                 b1_out = got
@@ -453,20 +488,28 @@ def main() -> int:
                 band = sk.linear_band(grp, shifted, mpack.kind_off, block)
                 _, n_near_b1 = sk.check_coarse_parity(got, b1_out, *parity, atol=band)
                 extra = f" | against B1: near-gate poses {n_near_b1} (band {band:.3g})"
+            kernels = _device_kernels(kernel)
+            if len(kernels) != 1:
+                raise AssertionError(f"[{tag}] {phase}: one wrapper call ran {kernels} on the "
+                                     "device, not one kernel")
             ms = _cuda_ms(kernel, 20)
             launch_ms = _cuda_ms(launch, 20)
             plain_ms = _cuda_ms(plain, 2)
-            bound_ms, bound_by = _bound(instr, nbytes if tag == "B1" else
-                                        nbytes + wrows.numel() * 4 - pr.numel() * 4)
+            bound_ms, bound_by = _bound(instr, nbytes)
+            bound_all_ms, _ = _bound(instr - 7.0 * (evals - evals_all), nbytes)
             _log(f"[{tag}] {phase}: groups {tuple(grp.shape)} poses {tuple(pr.shape)} block "
-                 f"{tuple(block.shape)} ({reps} reps) | kernel {ms:.4f} ms (launch alone "
-                 f"{launch_ms:.4f} ms), plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-                 f"({bound_by}, {evals:.4g} evaluations) | max |kernel-plain| {err:.3g}, "
-                 f"near-gate poses {n_near}{extra} | hits mean {float(got.mean()):.3f} max "
-                 f"{float(got.max()):.3f} | {smi}")
+                 f"{tuple(block.shape)} ({n_edge} edge + {n_reps - n_edge} surface reps) | "
+                 f"kernel {ms:.4f} ms (launch alone {launch_ms:.4f} ms; device kernels per "
+                 f"wrapper call {len(kernels)}), plain {plain_ms:.2f} ms, bound {bound_ms:.4f} "
+                 f"ms ({bound_by}, {evals:.4g} own-kind evaluations; {100 * bound_ms / ms:.1f} "
+                 f"% of it reached; all-representative count {evals_all:.4g}, bound "
+                 f"{bound_all_ms:.4f} ms) | max |kernel-plain| {err:.3g}, near-gate poses "
+                 f"{n_near}{extra} | hits mean {float(got.mean()):.3f} max "
+                 f"{float(got.max()):.3f} | ptxas {ptxas[src_name]} | {smi}")
             records.append({"phase": phase, "ms": ms, "launch_ms": launch_ms,
                             "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
-                            "bound_by": bound_by})
+                            "bound_by": bound_by, "bound_all_reps_ms": bound_all_ms,
+                            "evaluations": evals, "evaluations_all_reps": evals_all})
         if phase == "phase2":  # full mode ranks the same survivors through B3
             b3_phases.append(_check_full("131k full-mode phase 2", sk, mpack, grp, pr, t2,
                                          False, False, smi))

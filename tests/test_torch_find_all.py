@@ -144,3 +144,27 @@ def test_strict_fp32_context_restores_tf32_flags():
         assert torch.backends.cuda.matmul.allow_tf32 is True
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_strict_fp32_after_mixed_precision_apis():
+    """A global precision set by the new API and a legacy flag set after it
+    leave a state whose global getter raises; strict_fp32 still runs and
+    restores the flags."""
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        with strict_fp32():
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+            assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        assert torch.backends.cudnn.allow_tf32 is True
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with strict_fp32():
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev

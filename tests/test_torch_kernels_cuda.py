@@ -37,42 +37,82 @@ def card():
     return dev, model, scene, t_gt
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("block,stride,strict_primary", [("coarse", 8, False), ("fine", 4, True)])
-def test_coarse_kernel_matches_plain(card, block, stride, strict_primary):
+# the coarse kernels' cases: the main path's two phases, and ragged shapes —
+# Hg not a multiple of the pose tile, K not a multiple of the point tile, a
+# group with no eligible point, a group of one kind but one point, and a block
+# without edge representatives (a model without edge points)
+COARSE_CASES = [("coarse", 8, False, "main"), ("fine", 4, True, "main"),
+                ("coarse", 8, False, "hg33"), ("fine", 1, True, "k37"),
+                ("coarse", 8, False, "empty_group"), ("fine", 4, False, "imbalanced"),
+                ("coarse", 8, True, "no_edge_reps")]
+
+
+def _coarse_inputs(card, block, stride, variant):
+    """A pack, groups [8, 8, K] of the card scene, uncentred rows [8, Hg, 16]
+    (half near the true pose, half junk) and their centre-shifted copy."""
     dev, model, scene, t_gt = card
-    pack = sk.pack_model(model, coarse_points=256, fine_points=512)
+    if variant == "no_edge_reps":
+        xyz, nrm, _ = make_box_model(n_edge=120, n_face=360, size=(1.0, 0.8, 0.6), seed=0)
+        pack = sk.pack_model(SimpleNamespace(cloud=PointCloud.from_arrays(
+            xyz, nrm, np.zeros_like(xyz), device=dev)), coarse_points=256, fine_points=512)
+        assert pack.n_edge_reps == (0, 0)
+    else:
+        pack = sk.pack_model(model, coarse_points=256, fine_points=512)
     prep = driver.prepare_scene(scene, cfg.SearchPolicy())
     rng = np.random.default_rng(3)
-    g, hg, k = 8, 64, 256
+    g, hg, k = 8, 33 if variant == "hg33" else 64, 37 if variant == "k37" else 256
     nbr_idx = torch.from_numpy(rng.integers(0, scene.capacity, (g, k))).to(dev)
     nbr_ok = torch.from_numpy(rng.random((g, k)) > 0.1).to(dev)
+    if variant == "empty_group":
+        nbr_ok[2] = False
     groups = sk.pack_groups(prep.cloud, prep.tangent_mask,
                             torch.zeros(scene.capacity, dtype=torch.bool, device=dev),
                             nbr_idx, nbr_ok)[:, :, ::stride].contiguous()
+    if variant == "imbalanced":  # group 0: one surface point, every other point an edge one
+        groups[0, 3] = 1.0
+        groups[0, 3, 0] = 0.0
     ts = np.tile(np.linalg.inv(t_gt).astype(np.float32), (g, hg, 1, 1))
     ts[:, : hg // 2, :3, 3] += rng.normal(0, 0.01, (g, hg // 2, 3)).astype(np.float32)
     ts[:, hg // 2:, :3, 3] += rng.normal(0, 0.3, (g, hg - hg // 2, 3)).astype(np.float32)
     rows = sk.poses_to_rows(torch.from_numpy(ts).to(dev))
-    rows[..., 9:12] -= pack.center
-    md = pack.md_coarse if block == "coarse" else pack.md_fine
     thres = np.float32(3.0) * np.float32(float(model.resolution))
     t2 = float(thres * thres)
     t2c = sk._inflate(t2, pack.coarse_slack if block == "coarse" else pack.fine_slack)
-    frac = sk._f32(1.0 / (groups.shape[2] + 1))
-    w = (frac, 1.0) if strict_primary else (1.0, frac)
+    return pack, groups, rows, sk._centre_shifted(pack, rows), t2, t2c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,stride,strict_primary,variant", COARSE_CASES)
+def test_coarse_kernel_matches_plain(card, block, stride, strict_primary, variant):
+    pack, groups, rows, shifted, t2, t2c = _coarse_inputs(card, block, stride, variant)
+    hg = rows.shape[1]
+    md, n_edge, n_reps, args = sk._coarse_inputs(pack, groups, t2c, t2, block, strict_primary)
 
     before = sk.COARSE_RANK.launches
-    got = sk._coarse_launch(groups, rows, md, t2c, pack.kind_off, t2, *w)
+    got = sk.score_groups_coarse(pack, groups, rows, t2c, t2, block=block,
+                                 strict_primary=strict_primary)
     torch.cuda.synchronize()
     assert sk.COARSE_RANK.launches == before + 1
-    ref = sk.score_groups_coarse_plain(groups, rows, md, t2c, pack.kind_off, t2, *w)
-    sk.check_coarse_parity(got, ref, groups, rows, md, t2c, pack.kind_off, t2, strict_primary)
-    assert (got[:, : hg // 2].mean(1) > got[:, hg // 2:].mean(1)).all()
+    ref = sk.score_groups_coarse_plain(groups, shifted, md, *args)
+    _, excused = sk.check_coarse_parity(got, ref, groups, shifted, md, t2c, pack.kind_off, t2,
+                                        strict_primary)
+    assert excused == 0
+    # the near-true poses outscore the junk ones in every group left as drawn
+    drawn = [i for i in range(groups.shape[0])
+             if (variant, i) not in (("empty_group", 2), ("imbalanced", 0))]
+    assert (got[drawn, : hg // 2].mean(1) > got[drawn, hg // 2:].mean(1)).all()
+    if variant == "empty_group":
+        assert float(got[2].abs().max()) == 0.0
+    launch = sk._coarse_launch(groups, rows, md, n_edge, n_reps, pack.center_xyz, *args)
+    assert torch.equal(launch, got)
     with pytest.raises(ValueError):
-        sk._coarse_launch(groups.double(), rows, md, t2c, pack.kind_off, t2, *w)
+        sk._coarse_launch(groups.double(), rows, md, n_edge, n_reps, pack.center_xyz, *args)
     with pytest.raises(ValueError):
-        sk._coarse_launch(groups.cpu(), rows, md, t2c, pack.kind_off, t2, *w)
+        sk._coarse_launch(groups.cpu(), rows, md, n_edge, n_reps, pack.center_xyz, *args)
+    with pytest.raises(ValueError):
+        sk._coarse_launch(groups, rows[:, ::2], md, n_edge, n_reps, pack.center_xyz, *args)
+    with pytest.raises(ValueError):
+        sk._coarse_launch(groups, rows, md, n_edge, md.shape[1] + 1, pack.center_xyz, *args)
 
 
 @pytest.mark.cuda
@@ -170,29 +210,29 @@ def test_full_kernel_matches_plain(card, knobs, big):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block,stride,strict_primary", [("coarse", 8, False), ("fine", 4, True)])
-def test_coarse_linear_kernel_matches_plain(card, block, stride, strict_primary):
+@pytest.mark.parametrize("block,stride,strict_primary,variant", COARSE_CASES)
+def test_coarse_linear_kernel_matches_plain(card, block, stride, strict_primary, variant):
     """B4 against its plain version, and against B1 within ``linear_band``."""
-    pack, groups, rows = _exact_inputs(card[0], False)
-    groups = groups[:, :, ::stride].contiguous()
-    md = pack.md_coarse if block == "coarse" else pack.md_fine
-    t2 = float(np.float32(0.012) ** 2)
-    t2c = sk._inflate(t2, pack.coarse_slack if block == "coarse" else pack.fine_slack)
-    frac = sk._f32(1.0 / (groups.shape[2] + 1))
-    w = (frac, 1.0) if strict_primary else (1.0, frac)
-    wrows = sk.coarse_linear_rows(rows)
+    pack, groups, rows, shifted, t2, t2c = _coarse_inputs(card, block, stride, variant)
+    md, n_edge, n_reps, args = sk._coarse_inputs(pack, groups, t2c, t2, block, strict_primary)
+    wrows = sk.coarse_linear_rows(shifted)
 
     before = sk.COARSE_LINEAR_RANK.launches
-    got = sk._coarse_linear_launch(groups, wrows, md, t2c, pack.kind_off, t2, *w)
+    got = sk.score_groups_coarse_linear(pack, groups, rows, t2c, t2, block=block,
+                                        strict_primary=strict_primary)
     torch.cuda.synchronize()
     assert sk.COARSE_LINEAR_RANK.launches == before + 1
-    ref = sk.score_groups_coarse_linear_plain(groups, wrows, md, t2c, pack.kind_off, t2, *w)
-    args = (groups, rows, md, t2c, pack.kind_off, t2, strict_primary)
-    sk.check_coarse_parity(got, ref, *args)
-    b1 = sk._coarse_launch(groups, rows, md, t2c, pack.kind_off, t2, *w)
-    sk.check_coarse_parity(got, b1, *args, atol=sk.linear_band(groups, rows, pack.kind_off, md))
+    ref = sk.score_groups_coarse_linear_plain(groups, wrows, md, *args)
+    parity = (groups, shifted, md, t2c, pack.kind_off, t2, strict_primary)
+    _, excused = sk.check_coarse_parity(got, ref, *parity)
+    assert excused == 0
+    b1 = sk.score_groups_coarse(pack, groups, rows, t2c, t2, block=block,
+                                strict_primary=strict_primary)
+    sk.check_coarse_parity(got, b1, *parity,
+                           atol=sk.linear_band(groups, shifted, pack.kind_off, md))
     with pytest.raises(ValueError):
-        sk._coarse_linear_launch(groups, wrows[..., :6], md, t2c, pack.kind_off, t2, *w)
+        sk._coarse_linear_launch(groups, rows[..., :12], md, n_edge, n_reps, pack.center_xyz,
+                                 *args)
 
 
 @pytest.mark.cuda

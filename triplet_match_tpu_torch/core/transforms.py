@@ -24,7 +24,14 @@ def strict_fp32():
     ``torch.backends.cudnn.allow_tf32`` to False and restores both (and the
     float32 matmul precision they map onto) on exit.
     """
-    prev_prec = torch.get_float32_matmul_precision()
+    try:
+        prev_prec = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        # PyTorch >= 2.9 refuses the global getter once the legacy flags and
+        # the per-backend precisions were both set; the two flags below are
+        # then the whole state this context changes, and restoring them is
+        # exact
+        prev_prec = None
     prev_mm = torch.backends.cuda.matmul.allow_tf32
     prev_dnn = torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -33,7 +40,8 @@ def strict_fp32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_mm
-        torch.set_float32_matmul_precision(prev_prec)
+        if prev_prec is not None:
+            torch.set_float32_matmul_precision(prev_prec)
         torch.backends.cudnn.allow_tf32 = prev_dnn
 
 

@@ -81,11 +81,14 @@ def _load(name: str, argtypes: list) -> ctypes.CDLL:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# B1 and B4: groups, poses, block, out, g, hg, k, ld, n_edge, n_reps, the
+# centre (3), t2, off, t2s, w_inf, w_str, stream
+_COARSE_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P]
 
 
 def load_coarse_rank() -> ctypes.CDLL:
     """The coarse-ranker library (``csrc/coarse_rank.cu``), built on first use."""
-    return _load("coarse_rank", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P])
+    return _load("coarse_rank", _COARSE_ARGS)
 
 
 def load_exact_rank() -> ctypes.CDLL:
@@ -102,5 +105,5 @@ def load_full_rank() -> ctypes.CDLL:
 
 def load_coarse_linear_rank() -> ctypes.CDLL:
     """The linearised coarse-ranker library (``csrc/coarse_linear_rank.cu``), built on first use."""
-    return _load("coarse_linear_rank", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P])
+    return _load("coarse_linear_rank", _COARSE_ARGS)
 

@@ -62,8 +62,11 @@ class ModelPack(NamedTuple):
     B3 sweeps; ``md_coarse``/``md_fine`` are the 4-D representative blocks
     [x, y, z, w(kind), |p4|^2_hi, |p4|^2_lo, 1, 1] that B1 and B4 sweep.  The
     port adds ``mref_edge``/``mref_surf`` [3, *], the reference vectors
-    (tangents, normals) of the compact blocks' columns, for B3.  The scalars
-    are python floats (float32 values).
+    (tangents, normals) of the compact blocks' columns, for B3, and for B1 and
+    B4 the centre as host floats and each 4-D block's representative counts
+    (its first ``n_edge_reps`` columns are edge representatives, the next up
+    to ``n_reps`` surface ones, the rest padding).  The scalars are python
+    floats (float32 values) and ints.
     """
 
     channels_d: torch.Tensor
@@ -81,6 +84,9 @@ class ModelPack(NamedTuple):
     n_surf_cols: int  # model points in md_surf
     mref_edge: torch.Tensor  # [3, NeP] tangents of md_edge's columns (0 on padding)
     mref_surf: torch.Tensor  # [3, NsP] normals of md_surf's columns
+    center_xyz: tuple  # (x, y, z) of ``center``
+    n_edge_reps: tuple  # (md_coarse, md_fine) edge representatives
+    n_reps: tuple  # (md_coarse, md_fine) real representatives
 
 
 def _coverage_subsample(xyz, valid, cap: int):
@@ -228,19 +234,21 @@ def pack_model(model, max_points: int = 4096, coarse_points: int = 512,
         one = np.ones((nb_pad,), np.float32)
         md = np.stack([c_xyz[:, 0], c_xyz[:, 1], c_xyz[:, 2], c_w, mp2_hi, mp2_lo, one, one],
                       axis=0).astype(np.float32)
-        return md, max(r_e, r_s)
+        return md, max(r_e, r_s), int(edge_c.shape[0]), nb
 
-    md_coarse, slack_c = fourd_block(coarse_points)
-    md_fine, slack_f = fourd_block(fine_points)
+    md_coarse, slack_c, ne_c, nb_c = fourd_block(coarse_points)
+    md_fine, slack_f, ne_f, nb_f = fourd_block(fine_points)
+    center = center.astype(np.float32)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    return ModelPack(t(ch_d), t(ch_w), n_pad, t(center.astype(np.float32)),
+    return ModelPack(t(ch_d), t(ch_w), n_pad, t(center),
                      t(block(edge_pts)), t(block(surf_pts)), t(md_coarse),
                      float(np.float32(off)), float(np.float32(slack_c)), t(md_fine),
                      float(np.float32(slack_f)), int(edge_pts.shape[0]), int(surf_pts.shape[0]),
-                     t(ref_block(mtan[valid & is_edge])), t(ref_block(nrm[valid & ~is_edge])))
+                     t(ref_block(mtan[valid & is_edge])), t(ref_block(nrm[valid & ~is_edge])),
+                     tuple(float(c) for c in center), (ne_c, ne_f), (nb_c, nb_f))
 
 
 def group_channels(scene, tangent_mask, consumed, nbr_idx, nbr_valid,
@@ -339,6 +347,21 @@ def _bf16_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, x - hi
 
 
+def _coarse_operand(groups: torch.Tensor, poses: torch.Tensor, off: float):
+    """B1's operand of every (pose, point) pair in the TPU kernel's order of
+    float32 operations: a = [-2tx, -2ty, -2tz, -2w] and |tp4|^2 (ineligible
+    points +BIG), each [G, Hg, K].  groups [G, 8, K]; poses [G, Hg, 16]
+    centre-shifted."""
+    px, py, pz = (groups[:, None, c, :] for c in range(3))  # [G, 1, K]
+    w = off * groups[:, None, 3, :]
+    inelig = (1.0 - groups[:, None, 4, :]) * float(_BIG)
+    q = [poses[:, :, i, None] for i in range(12)]  # [G, Hg, 1]
+    tp = [_fma(q[3 * i + 2], pz, _fma(q[3 * i], px, q[3 * i + 1] * py)) + q[9 + i]
+          for i in range(3)]
+    tp2 = _fma(tp[2], tp[2], _fma(tp[0], tp[0], tp[1] * tp[1])) + w * w + inelig
+    return [-2.0 * tp[0], -2.0 * tp[1], -2.0 * tp[2], (-2.0 * w).expand_as(tp2)], tp2
+
+
 def score_groups_coarse_plain(groups: torch.Tensor, poses: torch.Tensor, block: torch.Tensor,
                               thres2: float, off: float, thres2_strict: float, w_inf: float,
                               w_str: float) -> torch.Tensor:
@@ -352,23 +375,15 @@ def score_groups_coarse_plain(groups: torch.Tensor, poses: torch.Tensor, block: 
     block's rows, accumulated in channel order with fused multiply-adds), the
     per-point minimum, and the score
     ``w_inf * #(dmin <= thres2) + w_str * #(dmin <= thres2_strict)``.
-    Ineligible points add +BIG to |tp4|^2.  Returns [G, Hg] float32.
+    Ineligible points add +BIG to |tp4|^2.  Every representative is swept,
+    as the TPU kernel sweeps them.  Returns [G, Hg] float32.
     """
     g, _, k = groups.shape
     hg = poses.shape[1]
     gc = max(1, _PLAIN_MAX_ELEMS // max(hg * k * _PLAIN_REP_CHUNK, 1))
     out = []
     for s in range(0, g, gc):
-        sc = groups[s:s + gc]
-        ps = poses[s:s + gc]
-        px, py, pz = (sc[:, None, c, :] for c in range(3))  # [gc, 1, K]
-        w = off * sc[:, None, 3, :]
-        inelig = (1.0 - sc[:, None, 4, :]) * float(_BIG)
-        q = [ps[:, :, i, None] for i in range(12)]  # [gc, Hg, 1]
-        tp = [_fma(q[3 * i + 2], pz, _fma(q[3 * i], px, q[3 * i + 1] * py)) + q[9 + i]
-              for i in range(3)]
-        tp2 = _fma(tp[2], tp[2], _fma(tp[0], tp[0], tp[1] * tp[1])) + w * w + inelig
-        a = [-2.0 * tp[0], -2.0 * tp[1], -2.0 * tp[2], (-2.0 * w).expand_as(tp2)]
+        a, tp2 = _coarse_operand(groups[s:s + gc], poses[s:s + gc], off)
         out.append(_coarse_hits(a, *_bf16_split(tp2), block, thres2, thres2_strict, w_inf,
                                 w_str))
     return torch.cat(out)
@@ -424,52 +439,79 @@ def check_coarse_parity(got: torch.Tensor, ref: torch.Tensor, groups: torch.Tens
     return float(err.max()) if err.numel() else 0.0, excused
 
 
-def _coarse_launch(groups, poses, block, thres2, off, thres2_strict, w_inf, w_str):
-    """Launch ``csrc/coarse_rank.cu`` on the current stream (CUDA tensors only)."""
-    for name, t, dims in (("groups", groups, 3), ("poses", poses, 3), ("block", block, 2)):
-        if t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != dims:
-            raise ValueError(f"{name}: need a float32 CUDA tensor of rank {dims}, got "
+def _coarse_kernel_launch(name, load, counter, groups, poses, block, n_edge, n_reps, center,
+                         thres2, off, thres2_strict, w_inf, w_str):
+    """Launch B1's or B4's kernel (``csrc/<name>.cu``) on the current stream:
+    uncentred pose rows, the centre as three floats, and the block's first
+    ``n_reps`` columns, edge representatives first (``n_edge``)."""
+    if max(float(thres2), float(thres2_strict)) >= float(off) * float(off):
+        # a cross-kind pair could then be under a gate, and the kernel sweeps
+        # only each point's own kind (csrc/coarse_rank.cuh)
+        raise ValueError(f"gates {thres2}, {thres2_strict} reach the squared kind offset "
+                         f"{off}^2")
+    for arg, t, dims in (("groups", groups, 3), ("poses", poses, 3), ("block", block, 2)):
+        if (t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != dims
+                or not t.is_contiguous()):
+            raise ValueError(f"{arg}: need a contiguous float32 CUDA tensor of rank {dims}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     g, ch, k = groups.shape
     hg = poses.shape[1]
-    nc = block.shape[1]
+    ld = block.shape[1]
     if ch != 8 or poses.shape != (g, hg, 16) or block.shape[0] != 8:
         raise ValueError(f"shapes groups {tuple(groups.shape)} poses {tuple(poses.shape)} "
                          f"block {tuple(block.shape)}")
     if not (groups.device == poses.device == block.device):
         raise ValueError("groups, poses and block must share one device")
-    lib = load_coarse_rank()
-    groups, poses, block = groups.contiguous(), poses.contiguous(), block.contiguous()
+    if not (0 <= n_edge <= n_reps <= ld) or len(center) != 3:
+        raise ValueError(f"representatives {n_edge} edge of {n_reps} in a block of {ld}, "
+                         f"centre {center}")
+    lib = load()
     out = torch.empty((g, hg), dtype=torch.float32, device=groups.device)
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(groups.device).cuda_stream
-    err = lib.coarse_rank_launch(
-        groups.data_ptr(), poses.data_ptr(), block.data_ptr(), out.data_ptr(),
-        g, hg, k, nc, ctypes.c_float(thres2), ctypes.c_float(off),
-        ctypes.c_float(thres2_strict), ctypes.c_float(w_inf), ctypes.c_float(w_str), stream)
+    f = ctypes.c_float
+    err = getattr(lib, f"{name}_launch")(
+        groups.data_ptr(), poses.data_ptr(), block.data_ptr(), out.data_ptr(), g, hg, k, ld,
+        n_edge, n_reps, *(f(c) for c in center), f(thres2), f(off), f(thres2_strict), f(w_inf),
+        f(w_str), stream)
     if err != 0:
-        raise RuntimeError("coarse_rank kernel launch failed: "
-                           f"{lib.coarse_rank_error_string(err).decode()}")
-    COARSE_RANK.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{getattr(lib, f'{name}_error_string')(err).decode()}")
+    counter.launches += 1
     return out
 
 
-def _coarse_inputs(mpack: ModelPack, groups: torch.Tensor, poses: torch.Tensor, dist_thres2,
-                   dist_thres2_strict, block: str, strict_primary: bool):
-    """The coarse rankers' (B1, B4) centre-shifted poses, 4-D block and
-    scalar arguments (thres2, kind offset, thres2_strict, w_inf, w_str)."""
+def _coarse_launch(groups, poses, block, n_edge, n_reps, center, thres2, off, thres2_strict,
+                   w_inf, w_str):
+    """Launch ``csrc/coarse_rank.cu`` (B1) on the current stream (CUDA tensors
+    only); ``poses`` are uncentred ``poses_to_rows`` rows."""
+    return _coarse_kernel_launch("coarse_rank", load_coarse_rank, COARSE_RANK, groups, poses,
+                                 block, n_edge, n_reps, center, thres2, off, thres2_strict,
+                                 w_inf, w_str)
+
+
+def _centre_shifted(mpack: ModelPack, poses: torch.Tensor) -> torch.Tensor:
+    poses = poses.clone()
+    poses[..., 9:12] -= mpack.center
+    return poses
+
+
+def _coarse_inputs(mpack: ModelPack, groups: torch.Tensor, dist_thres2, dist_thres2_strict,
+                   block: str, strict_primary: bool):
+    """The coarse rankers' (B1, B4) 4-D block, its edge and real
+    representative counts, and scalar arguments (thres2, kind offset,
+    thres2_strict, w_inf, w_str)."""
+    if groups.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no coarse ranker for device {groups.device}")
     k = groups.shape[2]
     t2 = _f32(dist_thres2)
     t2s = t2 if dist_thres2_strict is None else _f32(dist_thres2_strict)
     frac = _f32(1.0 / (k + 1))
     w_inf, w_str = (frac, 1.0) if strict_primary else (1.0, frac)
-    md = mpack.md_coarse if block == "coarse" else mpack.md_fine
-    poses = poses.clone()
-    poses[..., 9:12] -= mpack.center
-    if groups.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no coarse ranker for device {groups.device}")
-    return poses, md, (t2, mpack.kind_off, t2s, w_inf, w_str)
+    i = 0 if block == "coarse" else 1
+    md = mpack.md_coarse if i == 0 else mpack.md_fine
+    return md, mpack.n_edge_reps[i], mpack.n_reps[i], (t2, mpack.kind_off, t2s, w_inf, w_str)
 
 
 def score_groups_coarse(mpack: ModelPack, groups: torch.Tensor, poses: torch.Tensor,
@@ -481,14 +523,15 @@ def score_groups_coarse(mpack: ModelPack, groups: torch.Tensor, poses: torch.Ten
     is ``count_inflated + count_strict/(K+1)``, or with ``strict_primary``
     ``count_strict + count_inflated/(K+1)``; ``dist_thres2`` is the
     slack-inflated gate and ``dist_thres2_strict`` (default: the same) the
-    strict one.  A CUDA tensor runs the Hopper kernel, a CPU tensor the plain
-    version.  Returns [G, Hg] float32.
+    strict one.  A CUDA tensor runs the Hopper kernel (one launch, which
+    shifts the poses by the centre itself), a CPU tensor the plain version.
+    Returns [G, Hg] float32.
     """
-    poses, md, args = _coarse_inputs(mpack, groups, poses, dist_thres2, dist_thres2_strict,
-                                     block, strict_primary)
+    md, n_edge, n_reps, args = _coarse_inputs(mpack, groups, dist_thres2, dist_thres2_strict,
+                                              block, strict_primary)
     if groups.device.type == "cuda":
-        return _coarse_launch(groups, poses, md, *args)
-    return score_groups_coarse_plain(groups, poses, md, *args)
+        return _coarse_launch(groups, poses, md, n_edge, n_reps, mpack.center_xyz, *args)
+    return score_groups_coarse_plain(groups, _centre_shifted(mpack, poses), md, *args)
 
 
 # ---------------------------------------------------------------------------
@@ -508,7 +551,8 @@ def coarse_linear_rows(poses: torch.Tensor) -> torch.Tensor:
     row 3 -2 on w, rows 4 and 5 a 1 on the ones channel, row 6
     tp^2 = 2 p . R^T t + p2_hi + p2_lo + |t|^2; row 7 stays zero.  R^T t and
     |t|^2 are FMA chains in XLA's order, so the rows equal the JAX caller's
-    bit for bit.  The kernel and its plain version both consume these rows.
+    bit for bit.  The plain version consumes these rows; the kernel builds
+    the same rows from the pose itself.
     """
     r = poses[..., :9].unflatten(-1, (3, 3))
     t = poses[..., 9:12]
@@ -548,23 +592,29 @@ def score_groups_coarse_linear_plain(groups: torch.Tensor, wrows: torch.Tensor,
     gc = max(1, _PLAIN_MAX_ELEMS // max(hg * k * _PLAIN_REP_CHUNK, 1))
     out = []
     for s in range(0, g, gc):
-        sc = groups[s:s + gc]
-        x, y, z = (sc[:, None, c, :] for c in range(3))  # [gc, 1, K]
-        w = off * sc[:, None, 3, :]
-        inelig = (1.0 - sc[:, None, 4, :]) * float(_BIG)
-        p2 = _fma(z, z, _fma(x, x, y * y)) + w * w + inelig
-        statics = [x, y, z, *_bf16_split(p2), torch.ones_like(x), w]
-        wr = wrows[s:s + gc]
-
-        def row(i):
-            acc = wr[:, :, i, 0, None] * statics[0]
-            for c in range(1, _LIN_C):
-                acc = _fma(wr[:, :, i, c, None], statics[c], acc)
-            return acc  # [gc, Hg, K]
-
-        out.append(_coarse_hits([row(i) for i in range(4)], *_bf16_split(row(6)), block,
-                                thres2, thres2_strict, w_inf, w_str))
+        a, tp2 = _coarse_linear_operand(groups[s:s + gc], wrows[s:s + gc], off)
+        out.append(_coarse_hits(a, *_bf16_split(tp2), block, thres2, thres2_strict, w_inf,
+                                w_str))
     return torch.cat(out)
+
+
+def _coarse_linear_operand(groups: torch.Tensor, wrows: torch.Tensor, off: float):
+    """B4's operand of every (pose, point) pair: rows 0-3 of A = W S and row 6
+    (|tp4|^2), each [G, Hg, K], from the statics S of ``groups`` [G, 8, K] and
+    the coefficient rows ``wrows`` [G, Hg, 8, 7]."""
+    x, y, z = (groups[:, None, c, :] for c in range(3))  # [G, 1, K]
+    w = off * groups[:, None, 3, :]
+    inelig = (1.0 - groups[:, None, 4, :]) * float(_BIG)
+    p2 = _fma(z, z, _fma(x, x, y * y)) + w * w + inelig
+    statics = [x, y, z, *_bf16_split(p2), torch.ones_like(x), w]
+
+    def row(i):
+        acc = wrows[:, :, i, 0, None] * statics[0]
+        for c in range(1, _LIN_C):
+            acc = _fma(wrows[:, :, i, c, None], statics[c], acc)
+        return acc  # [G, Hg, K]
+
+    return [row(i) for i in range(4)], row(6)
 
 
 def linear_band(groups: torch.Tensor, poses: torch.Tensor, off: float,
@@ -583,35 +633,14 @@ def linear_band(groups: torch.Tensor, poses: torch.Tensor, off: float,
     return 64.0 * float(np.finfo(np.float32).eps) * ((pmax + tmax) ** 2 + off * off + m4)
 
 
-def _coarse_linear_launch(groups, wrows, block, thres2, off, thres2_strict, w_inf, w_str):
-    """Launch ``csrc/coarse_linear_rank.cu`` on the current stream (CUDA tensors only)."""
-    for name, t, dims in (("groups", groups, 3), ("wrows", wrows, 4), ("block", block, 2)):
-        if t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != dims:
-            raise ValueError(f"{name}: need a float32 CUDA tensor of rank {dims}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    g, ch, k = groups.shape
-    hg = wrows.shape[1]
-    nc = block.shape[1]
-    if ch != 8 or wrows.shape != (g, hg, 8, _LIN_C) or block.shape[0] != 8:
-        raise ValueError(f"shapes groups {tuple(groups.shape)} wrows {tuple(wrows.shape)} "
-                         f"block {tuple(block.shape)}")
-    if not (groups.device == wrows.device == block.device):
-        raise ValueError("groups, wrows and block must share one device")
-    lib = load_coarse_linear_rank()
-    groups, wrows, block = groups.contiguous(), wrows.contiguous(), block.contiguous()
-    out = torch.empty((g, hg), dtype=torch.float32, device=groups.device)
-    if out.numel() == 0:
-        return out
-    stream = torch.cuda.current_stream(groups.device).cuda_stream
-    err = lib.coarse_linear_rank_launch(
-        groups.data_ptr(), wrows.data_ptr(), block.data_ptr(), out.data_ptr(),
-        g, hg, k, nc, ctypes.c_float(thres2), ctypes.c_float(off),
-        ctypes.c_float(thres2_strict), ctypes.c_float(w_inf), ctypes.c_float(w_str), stream)
-    if err != 0:
-        raise RuntimeError("coarse_linear_rank kernel launch failed: "
-                           f"{lib.coarse_linear_rank_error_string(err).decode()}")
-    COARSE_LINEAR_RANK.launches += 1
-    return out
+def _coarse_linear_launch(groups, poses, block, n_edge, n_reps, center, thres2, off,
+                          thres2_strict, w_inf, w_str):
+    """Launch ``csrc/coarse_linear_rank.cu`` (B4) on the current stream (CUDA
+    tensors only); ``poses`` are uncentred ``poses_to_rows`` rows, from which
+    the kernel builds the coefficient rows."""
+    return _coarse_kernel_launch("coarse_linear_rank", load_coarse_linear_rank,
+                                 COARSE_LINEAR_RANK, groups, poses, block, n_edge, n_reps, center,
+                                 thres2, off, thres2_strict, w_inf, w_str)
 
 
 def score_groups_coarse_linear(mpack: ModelPack, groups: torch.Tensor, poses: torch.Tensor,
@@ -620,14 +649,14 @@ def score_groups_coarse_linear(mpack: ModelPack, groups: torch.Tensor, poses: to
     """Linearised drop-in for :func:`score_groups_coarse` (TPU kernel B4): the
     same contract, arguments and output, with the operand built from
     per-pose coefficient rows (``coarse_linear_rows``) and per-point statics.
-    A CUDA tensor runs the Hopper kernel, a CPU tensor the plain version.
-    Returns [G, Hg] float32.
+    A CUDA tensor runs the Hopper kernel (one launch, which builds the rows
+    itself), a CPU tensor the plain version.  Returns [G, Hg] float32.
     """
-    poses, md, args = _coarse_inputs(mpack, groups, poses, dist_thres2, dist_thres2_strict,
-                                     block, strict_primary)
-    wrows = coarse_linear_rows(poses)
+    md, n_edge, n_reps, args = _coarse_inputs(mpack, groups, dist_thres2, dist_thres2_strict,
+                                              block, strict_primary)
     if groups.device.type == "cuda":
-        return _coarse_linear_launch(groups, wrows, md, *args)
+        return _coarse_linear_launch(groups, poses, md, n_edge, n_reps, mpack.center_xyz, *args)
+    wrows = coarse_linear_rows(_centre_shifted(mpack, poses))
     return score_groups_coarse_linear_plain(groups, wrows, md, *args)
 
 
