@@ -19,13 +19,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
               1e-5 * gate of a gate (B4 against B1: within
               score_kernel.linear_band), and B1 and B4 must agree with their
               plain versions with no such excuse; coarse tiebreaks within K
-              float32 ulps, B3 scores within 1e-5 relative.  One B1 or B4
-              wrapper call must run exactly one device kernel
-              (torch.profiler).  B1's and B4's bounds count own-kind
-              evaluations (what their kernels sweep) and each pose's
-              operand arithmetic, with the all-representative count
-              printed beside, and their lines
-              carry the ptxas registers and spills.
+              float32 ulps, B3 scores within 1e-5 relative.  One wrapper
+              call of any of the four must run exactly one device kernel
+              (a CUDA graph captured from it).  B1's and B4's bounds count
+              own-kind evaluations (what their kernels sweep) and each
+              pose's operand arithmetic, with the all-representative count
+              printed beside, and their lines carry the ptxas registers and
+              spills.
 4. main131  — compile the 2400-point box model, build the 131072-point
               touching-fog recall scene (seed 0), prepare it, and run
               find_all with the recall-protocol settings twice (first and
@@ -55,7 +55,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
               full-mode phase 2 and the same single-phase route; kernel and
               plain version on the same full-shape inputs.  Counts must agree
               exactly except near-gate points (reported); scores within 1e-5
-              relative.
+              relative.  B2's and B3's lines give the recounted bound (own-
+              kind columns for every eligible pair, other-kind columns only
+              for those within the gate, all with `negative`, B3's second
+              pass; from the plain version's distances) beside the
+              both-blocks bound (both blocks for every pair), the share of pairs within the gate and
+              the share of warps a warp vote would leave sweeping.
 10. main500 — the 500000-point recall scene (seed 0): find_all first and warm.
               The fog switch must fire, the search must launch B2 and not
               B1, the subset join must not overflow, and the first match
@@ -112,26 +117,38 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_kernels(fn, tries: int = 3) -> list:
-    """Names of the device kernels and copies that one call of ``fn`` runs.
+def _device_ops(fn) -> list:
+    """The device work one call of ``fn`` enqueues: the kernel, copy and memset
+    nodes of a CUDA graph captured from the call, read through the driver
+    API (cuGraphGetNodes, cuGraphNodeGetType).  Exact, unlike a profiler
+    capture, which came back without device records now and then."""
+    import ctypes
 
-    The profiler now and then returns a capture without any device record
-    (seen once in three runs on the H100, for a call whose output was checked);
-    such an empty capture is taken again, up to ``tries`` captures in all.  A
-    capture with records is returned as it is."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if names:
-            break
-    return names
+    fn()  # warm: the kernels are built and loaded outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    drv = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if drv.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    if drv.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType
+    ops = []
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(-1)
+        if drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        if t.value in kinds:
+            ops.append(kinds[t.value])
+    graph.reset()
+    return ops
 
 
 def _bound(instr: float, nbytes: float) -> tuple[float, str]:
@@ -194,7 +211,9 @@ def _profile(tag: str, fn, smi: str) -> dict:
          f"copies {d2h} | {smi}")
     for r, ms in range_ms.items():
         _log(f"[{tag}] range {r}: host ms per round {[round(m, 3) for m in ms]} | {smi}")
-    for n, (cnt, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    # the top kernels, and the port's own (rank_kernel) wherever they rank
+    for n, (cnt, us) in [kv for i, kv in enumerate(ranked) if i < 12 or "rank_kernel" in kv[0]]:
         _log(f"[{tag}] device {us / 1e3:9.3f} ms {100.0 * us / max(busy_us, 1e-9):5.1f} % "
              f"x{cnt:<5d} {n[:110]} | {smi}")
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3, "launches": launches,
@@ -290,11 +309,55 @@ def _expect_launches(tag, launches, stats, launched, idle):
             raise AssertionError(f"[{tag}] the search launched {b}: {launches}")
 
 
-def _check_full(phase, sk, mpack, grp, pr, t2, weighted, negative, smi):
-    """B3 against its plain version on the same inputs; returns its phase
-    record.  The bound counts the first pass (every eligible point against
-    both blocks) and the second (every counted point against its own kind's
-    block), 5 fp32 instructions per evaluation."""
+def _warp_sweep_share(sk, grp, gi, ki, surv, n_poses) -> float:
+    """Share of the (block, round, warp) units of B2 / B3's own-kind pass
+    (csrc/exact_rank.cuh: points compacted by kind and padded to whole tiles
+    of 4, tile index = point tile x npt + pose tile, EXACT_THREADS tiles a
+    round; a split last round counted as whole tiles) holding at least one
+    eligible pair in which some pair needs the other kind: the warps that
+    would still sweep the other-kind block under a warp vote."""
+    import torch
+
+    tp, tq = sk.EXACT_TILE
+    g = grp.shape[0]
+    npt = sk.exact_pose_tiles(g, n_poses, sk._sm_count(grp.device))
+    pb = npt * tp
+    edge = grp[gi, 3, ki] > 0.5
+    # slot of each eligible point within its kind (gi, ki are group-major)
+    key = gi * 2 + (~edge).long()
+    first = torch.zeros_like(key)
+    first[1:] = (key[1:] != key[:-1]).long()
+    run = torch.cumsum(first, 0)
+    start = torch.zeros(int(run[-1]) + 1, dtype=torch.long, device=key.device)
+    start.scatter_reduce_(0, run, torch.arange(key.numel(), device=key.device), "amin",
+                          include_self=False)
+    rank = torch.arange(key.numel(), device=key.device) - start[run]
+    n_edge = torch.zeros(g, dtype=torch.long, device=key.device).index_add_(0, gi, edge.long())
+    qt = torch.where(edge, rank // tq, (n_edge[gi] + tq - 1) // tq + rank // tq)  # [M]
+    h = torch.arange(n_poses, device=key.device)
+    idx = qt[:, None] * npt + ((h % pb) // tp)[None]  # [M, Hg]
+    rounds = int(idx.max()) // sk.EXACT_THREADS + 1
+    blocks = -(-n_poses // pb)
+    warps = sk.EXACT_THREADS // 32
+    unit = (((gi[:, None] * blocks + (h // pb)[None]) * rounds + idx // sk.EXACT_THREADS) * warps
+            + (idx % sk.EXACT_THREADS) // 32)
+    real = torch.unique(unit).numel()
+    sweep = torch.unique(unit[surv]).numel()
+    return sweep / max(real, 1)
+
+
+def _check_exact(tag, phase, sk, mpack, grp, pr, t2, weighted, negative, full, smi):
+    """B2 (or with ``full`` B3) against its plain version on the same inputs;
+    returns the phase record.  Two bounds: the recounted one, the work this
+    run's data needs (own-kind columns for every eligible pair, other-kind
+    columns for the pairs within the gate or, with ``negative``, for all,
+    B3's second pass over the own-kind columns for counted pairs, 5 fp32
+    instructions per evaluation; 17 per pair for the operand, 3 per pose for
+    t - c), and the both-blocks bound (both blocks for every pair, plus the
+    second pass).
+    Also the share of pairs within the gate, the share of warps that a warp
+    vote would leave sweeping, and the device kernels one wrapper call runs
+    (must be 1)."""
     import torch
 
     shifted = pr.clone()
@@ -302,43 +365,69 @@ def _check_full(phase, sk, mpack, grp, pr, t2, weighted, negative, smi):
     me, ms_blk = sk.exact_blocks(mpack)
     refs = sk.ref_blocks(mpack)
     inv2t = sk._inv2t(t2)
+    mode = "full" if full else "count"
 
     def kernel():
-        return sk.score_groups_exact(mpack, grp, pr, t2, mode="full", weighted_distance=weighted,
+        return sk.score_groups_exact(mpack, grp, pr, t2, mode=mode, weighted_distance=weighted,
                                      negative_scores=negative)
 
     def plain():
-        return sk.score_groups_full_plain(grp, shifted, me, ms_blk, *refs, t2, inv2t, weighted,
-                                          negative)
+        if full:
+            return sk.score_groups_full_plain(grp, shifted, me, ms_blk, *refs, t2, inv2t,
+                                              weighted, negative)
+        return sk.score_groups_exact_plain(grp, shifted, me, ms_blk, t2, inv2t, weighted,
+                                           negative)
 
     got = kernel()
     torch.cuda.synchronize()
     ref = plain()
     torch.cuda.synchronize()
     err, n_near = sk.check_exact_parity(got, ref, grp, shifted, me, ms_blk, t2)
+    kernels = _device_ops(kernel)
+    if kernels != ["kernel"]:
+        raise AssertionError(f"[{tag}] {phase}: one wrapper call ran {kernels} on the device, "
+                             "not one kernel")
     ms = _cuda_ms(kernel, 10)
     plain_ms = _cuda_ms(plain, 1)
     n_poses = pr.shape[1]
+    ne, ns = me.shape[1], ms_blk.shape[1]
+    gi, ki, d_own, d_other = sk.exact_pair_d2(grp, shifted, me, ms_blk)
+    edge = (grp[gi, 3, ki] > 0.5)[:, None]
+    own_cols = torch.where(edge, ne, ns).double()
+    other_cols = torch.where(edge, ns, ne).double()
+    gate = d_own <= t2
+    counted = gate & (d_own <= d_other)
+    surv = torch.ones_like(gate) if negative else gate
+    pairs = float(gate.numel())
+    evals_own = float(own_cols.sum()) * n_poses
+    evals_other = float((other_cols * surv).sum())
+    evals2 = float((own_cols * counted).sum()) if full else 0.0
+    instr = (5.0 * (evals_own + evals_other + evals2) + 17.0 * pairs
+             + 3.0 * grp.shape[0] * n_poses)
+    nbytes = (_nbytes(grp, pr) + (28 if full else 16) * (ne + ns)
+              + 8 * grp.shape[0] * n_poses)
+    bound_ms, bound_by = _bound(instr, nbytes)
+    bound_both_ms, _ = _bound(5.0 * (pairs * (ne + ns) + evals2), nbytes)
+    surv_share = float(gate.double().mean()) if gate.numel() else 0.0
+    warp_share = _warp_sweep_share(sk, grp, gi, ki, gate, n_poses) if gate.numel() else 0.0
     n_el = (grp[:, 4] > 0.5).sum(1).double()
-    evals = float((n_el * n_poses).sum()) * (me.shape[1] + ms_blk.shape[1])
-    # counted points by kind: a point's count does not depend on the others
-    counted = {}
-    for kind in (True, False):
-        only = grp.clone()
-        only[:, 4] *= ((grp[:, 3] > 0.5) == kind).float()
-        counted[kind] = float(sk.score_groups_exact_plain(only, shifted, me, ms_blk, t2,
-                                                          inv2t)[1].double().sum())
-    evals2 = counted[True] * me.shape[1] + counted[False] * ms_blk.shape[1]
-    nbytes = _nbytes(grp, pr) + 28 * (me.shape[1] + ms_blk.shape[1]) + 8 * grp.shape[0] * n_poses
-    bound_ms, bound_by = _bound(5.0 * (evals + evals2), nbytes)
-    _log(f"[B3] {phase}: groups {tuple(grp.shape)} poses {tuple(pr.shape)} blocks "
+    _log(f"[{tag}] {phase}: groups {tuple(grp.shape)} poses {tuple(pr.shape)} blocks "
          f"{tuple(me.shape)} + {tuple(ms_blk.shape)} | eligible points per group mean "
-         f"{float(n_el.mean()):.2f} | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-         f"{bound_ms:.4f} ms ({bound_by}, {evals:.4g} + {evals2:.4g} evaluations) | max "
-         f"|score diff| {err:.3g}, near-gate poses {n_near} | score mean "
-         f"{float(got[0].mean()):.3f}, count mean {float(got[1].float().mean()):.3f} | {smi}")
+         f"{float(n_el.mean()):.2f} max {int(n_el.max())} | kernel {ms:.4f} ms (device kernels "
+         f"per wrapper call {len(kernels)}), plain {plain_ms:.2f} ms | recounted bound "
+         f"{bound_ms:.4f} ms ({bound_by}; {evals_own:.4g} own-kind + {evals_other:.4g} "
+         f"other-kind + {evals2:.4g} second-pass evaluations; {100 * bound_ms / ms:.1f} % of it "
+         f"reached), both-blocks bound {bound_both_ms:.4f} ms ({100 * bound_both_ms / ms:.1f} "
+         f"%) | pairs "
+         f"{pairs:.4g}: within the gate {100 * surv_share:.2f} %, counted "
+         f"{100 * float(counted.double().mean()):.2f} %; warps a vote leaves sweeping "
+         f"{100 * warp_share:.2f} % | max |score diff| {err:.3g}, near-gate poses {n_near} | "
+         f"score mean {float(got[0].mean()):.3f}, count mean {float(got[1].float().mean()):.3f} "
+         f"max {int(got[1].max())} | {smi}")
     return {"phase": phase, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "near_gate_poses": n_near, "bound_ms": bound_ms, "bound_by": bound_by}
+            "near_gate_poses": n_near, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_both_blocks_ms": bound_both_ms, "gate_share": surv_share,
+            "warp_sweep_share": warp_share, "kernels_per_call": len(kernels)}
 
 
 def main() -> int:
@@ -488,8 +577,8 @@ def main() -> int:
                 band = sk.linear_band(grp, shifted, mpack.kind_off, block)
                 _, n_near_b1 = sk.check_coarse_parity(got, b1_out, *parity, atol=band)
                 extra = f" | against B1: near-gate poses {n_near_b1} (band {band:.3g})"
-            kernels = _device_kernels(kernel)
-            if len(kernels) != 1:
+            kernels = _device_ops(kernel)
+            if kernels != ["kernel"]:
                 raise AssertionError(f"[{tag}] {phase}: one wrapper call ran {kernels} on the "
                                      "device, not one kernel")
             ms = _cuda_ms(kernel, 20)
@@ -511,8 +600,8 @@ def main() -> int:
                             "bound_by": bound_by, "bound_all_reps_ms": bound_all_ms,
                             "evaluations": evals, "evaluations_all_reps": evals_all})
         if phase == "phase2":  # full mode ranks the same survivors through B3
-            b3_phases.append(_check_full("131k full-mode phase 2", sk, mpack, grp, pr, t2,
-                                         False, False, smi))
+            b3_phases.append(_check_exact("B3", "131k full-mode phase 2", sk, mpack, grp, pr, t2,
+                                          False, False, True, smi))
     walls["B1, B4, B3 131k"] = time.perf_counter() - t0
 
     # --- 131k main paths -----------------------------------------------------------
@@ -611,58 +700,25 @@ def main() -> int:
     groups5, rows5 = _check_poses(dev, fprep5, model, t_gt5, fog5, gen, 789)
     hg5 = rows5.shape[1]
     keep5 = sk.two_phase_keep(hg5, fog5.two_phase_keep_frac, fog5.two_phase_pose_tile)
-    me, ms_blk = sk.exact_blocks(mpack)
-    inv2t = sk._inv2t(t2)
     b2_phases = []
     checks = (("phase1", fog5.two_phase_stride, hg5, False, False),
               ("phase2", fog5.two_phase_fine_stride, keep5, False, False),
               ("single-phase weighted+negative", 1, hg5, True, True))
     for phase, stride, n_poses, weighted, negative in checks:
-        grp = groups5[:, :, ::stride].contiguous()
         lo = (hg5 - n_poses) // 2  # half near-true poses, half junk
-        pr = rows5[:, lo:lo + n_poses].contiguous()
-        shifted = pr.clone()
-        shifted[..., 9:12] -= mpack.center
-
-        def kernel():
-            return sk.score_groups_exact(mpack, grp, pr, t2, weighted_distance=weighted,
-                                         negative_scores=negative)
-
-        def plain():
-            return sk.score_groups_exact_plain(grp, shifted, me, ms_blk, t2, inv2t, weighted,
-                                               negative)
-
-        got = kernel()
-        torch.cuda.synchronize()
-        ref = plain()
-        torch.cuda.synchronize()
-        err, n_near = sk.check_exact_parity(got, ref, grp, shifted, me, ms_blk, t2)
-        ms = _cuda_ms(kernel, 10)
-        plain_ms = _cuda_ms(plain, 1)
-        # the work this run's data needs: eligible points x poses x model
-        # points, 5 fp32 instructions each (1 mul, 2 FMA, 1 add, 1 min)
-        n_el = (grp[:, 4] > 0.5).sum(1).double()
-        evals = float((n_el * n_poses).sum()) * (me.shape[1] + ms_blk.shape[1])
-        bytes_in = _nbytes(grp, pr) + 16 * (me.shape[1] + ms_blk.shape[1])
-        bound_ms, bound_by = _bound(5.0 * evals, bytes_in + 8 * grp.shape[0] * n_poses)
-        _log(f"[B2] {phase}: groups {tuple(grp.shape)} poses {tuple(pr.shape)} blocks "
-             f"{tuple(me.shape)} + {tuple(ms_blk.shape)} | eligible points per group mean "
-             f"{float(n_el.mean()):.2f} max {int(n_el.max())} | kernel {ms:.4f} ms, plain "
-             f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}, {evals:.4g} evaluations) | "
-             f"max |score diff| {err:.3g}, near-gate poses {n_near} | count mean "
-             f"{float(got[1].float().mean()):.3f} max {int(got[1].max())} | {smi}")
-        b2_phases.append({"phase": phase, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                          "near_gate_poses": n_near, "bound_ms": bound_ms, "bound_by": bound_by})
+        b2_phases.append(_check_exact(
+            "B2", phase, sk, mpack, groups5[:, :, ::stride].contiguous(),
+            rows5[:, lo:lo + n_poses].contiguous(), t2, weighted, negative, False, smi))
     # full mode on the fog route: phase 2 keeps the configured fine stride
     # (driver.fog_policy), and the single-phase route ranks every pose
     fog_full, _ = driver.fog_policy(dataclasses.replace(eff5, ranking_mode="full"), prep5, model)
     lo = (hg5 - keep5) // 2
-    b3_phases.append(_check_full(
-        "500k fog full-mode phase 2", sk, mpack,
+    b3_phases.append(_check_exact(
+        "B3", "500k fog full-mode phase 2", sk, mpack,
         groups5[:, :, ::fog_full.two_phase_fine_stride].contiguous(),
-        rows5[:, lo:lo + keep5].contiguous(), t2, False, False, smi))
-    b3_phases.append(_check_full("500k single-phase weighted+negative", sk, mpack, groups5,
-                                 rows5, t2, True, True, smi))
+        rows5[:, lo:lo + keep5].contiguous(), t2, False, False, True, smi))
+    b3_phases.append(_check_exact("B3", "500k single-phase weighted+negative", sk, mpack,
+                                  groups5, rows5, t2, True, True, True, smi))
     walls["B2, B3 500k"] = time.perf_counter() - t0
 
     # --- 500k main paths -------------------------------------------------------------

@@ -128,10 +128,14 @@ def test_find_all_on_card_launches_the_kernel(card):
     assert driver.LAST_SEARCH_STATS["coarse_kernel_launches"] > 0
 
 
-def _exact_inputs(dev, big):
-    """A pack (4096 model points when ``big``), groups [16, 8, 256] of a
-    scene with the model planted, and centre-shifted rows [16, 96, 16], half
-    near the true pose and half junk."""
+def _exact_inputs(dev, big, variant="main"):
+    """A pack (4096 model points when ``big``), groups [16, 8, K] of a scene
+    with the model planted, uncentred rows [16, Hg, 16] (half near the true
+    pose, half junk), their centre-shifted copy and the gate.  Variants:
+    "ragged" (K = 37 and Hg = 33: eligible counts off the point tile, Hg off
+    the block's poses), "none_in_gate" (group 3's poses 50 m away: no pair
+    within the gate, the other-kind sweep skipped everywhere), "all_in_gate"
+    (a 2 m gate: every pair within it, every survivor list full)."""
     n_edge, n_face = (1500, 4500) if big else (120, 360)
     xyz, nrm, tan = make_box_model(n_edge=n_edge, n_face=n_face, size=(1.0, 0.8, 0.6), seed=0)
     pack = sk.pack_model(SimpleNamespace(cloud=PointCloud.from_arrays(xyz, nrm, tan, device=dev)))
@@ -139,7 +143,7 @@ def _exact_inputs(dev, big):
                                     device=dev)
     tm = torch.linalg.vector_norm(scene.tangent, dim=-1) > 0.7
     rng = np.random.default_rng(4)
-    g, hg, k = 16, 96, 256
+    g, hg, k = (16, 33, 37) if variant == "ragged" else (16, 96, 256)
     nbr_idx = torch.from_numpy(rng.integers(0, scene.capacity, (g, k))).to(dev)
     nbr_ok = torch.from_numpy(rng.random((g, k)) > 0.1).to(dev)
     groups = sk.pack_groups(scene, tm, torch.zeros(scene.capacity, dtype=torch.bool, device=dev),
@@ -147,65 +151,102 @@ def _exact_inputs(dev, big):
     ts = np.tile(np.linalg.inv(t_gt).astype(np.float32), (g, hg, 1, 1))
     ts[:, : hg // 2, :3, 3] += rng.normal(0, 0.004, (g, hg // 2, 3)).astype(np.float32)
     ts[:, hg // 2:, :3, 3] += rng.normal(0, 0.3, (g, hg - hg // 2, 3)).astype(np.float32)
+    if variant == "none_in_gate":
+        ts[3, :, :3, 3] += 50.0
     rows = sk.poses_to_rows(torch.from_numpy(ts).to(dev))
-    rows[..., 9:12] -= pack.center
-    return pack, groups, rows
+    t2 = 4.0 if variant == "all_in_gate" else float(np.float32(0.012) ** 2)
+    return pack, groups, rows, sk._centre_shifted(pack, rows), t2
+
+
+EXACT_VARIANTS = [("plain", False, "main"), ("weighted", False, "main"),
+                  ("negative", False, "main"), ("plain", True, "main"),
+                  ("weighted", True, "main"), ("negative", True, "main"),
+                  ("plain", False, "ragged"), ("negative", False, "ragged"),
+                  ("plain", False, "none_in_gate"), ("weighted", False, "none_in_gate"),
+                  ("plain", False, "all_in_gate"), ("negative", False, "all_in_gate")]
+
+
+def _check_gate_variant(variant, got, hg):
+    """The near-true poses outcount the junk ones where the gate is the real
+    one; group 3 of "none_in_gate" counts and scores nothing."""
+    drawn = [i for i in range(got[1].shape[0]) if (variant, i) != ("none_in_gate", 3)]
+    if variant != "all_in_gate":
+        c = got[1][drawn].float()
+        assert (c[:, : hg // 2].mean(1) > c[:, hg // 2:].mean(1)).all()
+    if variant == "none_in_gate":
+        assert int(got[1][3].abs().max()) == 0 and float(got[0][3].abs().max()) == 0.0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("knobs", ["plain", "weighted", "negative"])
-@pytest.mark.parametrize("big", [False, True])
-def test_exact_kernel_matches_plain(card, knobs, big):
+@pytest.mark.parametrize("knobs,big,variant", EXACT_VARIANTS)
+def test_exact_kernel_matches_plain(card, knobs, big, variant):
     """B2 against its plain version; ``big`` packs 4096 model points, whose
     blocks need more than 48 KB of shared memory."""
-    pack, groups, rows = _exact_inputs(card[0], big)
+    pack, groups, rows, shifted, t2 = _exact_inputs(card[0], big, variant)
     me, ms = sk.exact_blocks(pack)
     assert ((me.shape[1] + ms.shape[1]) * 16 > 48 * 1024) == big
     hg = rows.shape[1]
-    t2 = float(np.float32(0.012) ** 2)
     weighted, negative = knobs == "weighted", knobs == "negative"
     inv2t = sk._inv2t(t2)
 
     before = sk.EXACT_RANK.launches
-    got = sk._exact_launch(groups, rows, me, ms, t2, inv2t, weighted, negative)
+    got = sk._exact_launch(groups, rows, me, ms, pack.center_xyz, t2, inv2t, weighted, negative)
     torch.cuda.synchronize()
     assert sk.EXACT_RANK.launches == before + 1
-    ref = sk.score_groups_exact_plain(groups, rows, me, ms, t2, inv2t, weighted, negative)
-    sk.check_exact_parity(got, ref, groups, rows, me, ms, t2)
-    assert (got[1][:, : hg // 2].float().mean(1) > got[1][:, hg // 2:].float().mean(1)).all()
+    ref = sk.score_groups_exact_plain(groups, shifted, me, ms, t2, inv2t, weighted, negative)
+    sk.check_exact_parity(got, ref, groups, shifted, me, ms, t2)
+    _check_gate_variant(variant, got, hg)
+    wrapper = sk.score_groups_exact(pack, groups, rows, t2, weighted_distance=weighted,
+                                    negative_scores=negative)
+    assert torch.equal(wrapper[0], got[0]) and torch.equal(wrapper[1], got[1])  # deterministic
     with pytest.raises(ValueError):
-        sk._exact_launch(groups.double(), rows, me, ms, t2, inv2t, weighted, negative)
+        sk._exact_launch(groups.double(), rows, me, ms, pack.center_xyz, t2, inv2t, weighted,
+                         negative)
     with pytest.raises(ValueError):
-        sk._exact_launch(groups.cpu(), rows, me, ms, t2, inv2t, weighted, negative)
+        sk._exact_launch(groups.cpu(), rows, me, ms, pack.center_xyz, t2, inv2t, weighted,
+                         negative)
+    with pytest.raises(ValueError):
+        sk._exact_launch(groups, rows[:, ::2], me, ms, pack.center_xyz, t2, inv2t, weighted,
+                         negative)
+
+
+FULL_VARIANTS = [("plain", False, "main"), ("weighted+negative", False, "main"),
+                 ("plain", True, "main"), ("weighted+negative", True, "main"),
+                 ("plain", False, "ragged"), ("weighted+negative", False, "ragged"),
+                 ("plain", False, "none_in_gate"), ("plain", False, "all_in_gate"),
+                 ("weighted+negative", False, "all_in_gate")]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("knobs", ["plain", "weighted+negative"])
-@pytest.mark.parametrize("big", [False, True])
-def test_full_kernel_matches_plain(card, knobs, big):
+@pytest.mark.parametrize("knobs,big,variant", FULL_VARIANTS)
+def test_full_kernel_matches_plain(card, knobs, big, variant):
     """B3 against its plain version; ``big`` packs 4096 model points, whose
-    blocks and reference vectors need ~160 KB of shared memory."""
-    pack, groups, rows = _exact_inputs(card[0], big)
+    blocks and reference vectors need ~170 KB of shared memory."""
+    pack, groups, rows, shifted, t2 = _exact_inputs(card[0], big, variant)
     me, ms = sk.exact_blocks(pack)
     refs = sk.ref_blocks(pack)
     assert ((me.shape[1] + ms.shape[1] + groups.shape[2]) * 32 > 48 * 1024) == big
     hg = rows.shape[1]
-    t2 = float(np.float32(0.012) ** 2)
     weighted = negative = knobs != "plain"
     inv2t = sk._inv2t(t2)
 
     before = sk.FULL_RANK.launches
-    got = sk._exact_launch(groups, rows, me, ms, t2, inv2t, weighted, negative, refs)
+    got = sk._exact_launch(groups, rows, me, ms, pack.center_xyz, t2, inv2t, weighted, negative,
+                           refs)
     torch.cuda.synchronize()
     assert sk.FULL_RANK.launches == before + 1
-    ref = sk.score_groups_full_plain(groups, rows, me, ms, *refs, t2, inv2t, weighted, negative)
-    _, excused = sk.check_exact_parity(got, ref, groups, rows, me, ms, t2)
+    ref = sk.score_groups_full_plain(groups, shifted, me, ms, *refs, t2, inv2t, weighted,
+                                     negative)
+    _, excused = sk.check_exact_parity(got, ref, groups, shifted, me, ms, t2)
     assert excused == 0
-    assert (got[0][:, : hg // 2].mean(1) > got[0][:, hg // 2:].mean(1)).all()
-    count_only = sk._exact_launch(groups, rows, me, ms, t2, inv2t, weighted, negative)
+    if variant in ("main", "ragged"):
+        assert (got[0][:, : hg // 2].mean(1) > got[0][:, hg // 2:].mean(1)).all()
+    _check_gate_variant(variant, got, hg)
+    count_only = sk._exact_launch(groups, rows, me, ms, pack.center_xyz, t2, inv2t, weighted,
+                                  negative)
     assert torch.equal(count_only[1], got[1])  # B3's count is B2's
     with pytest.raises(ValueError):
-        sk._exact_launch(groups, rows, me, ms, t2, inv2t, weighted, negative,
+        sk._exact_launch(groups, rows, me, ms, pack.center_xyz, t2, inv2t, weighted, negative,
                          (refs[0][:, :-1], refs[1]))
 
 

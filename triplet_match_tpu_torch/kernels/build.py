@@ -93,14 +93,17 @@ def load_coarse_rank() -> ctypes.CDLL:
 
 def load_exact_rank() -> ctypes.CDLL:
     """The exact-ranker library (``csrc/exact_rank.cu``), built on first use."""
-    return _load("exact_rank", [_P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _F, _F, _I,
-                                _I, _P])
+    # groups, poses, me, ne, ld_e, ms, ns, ld_s, score, count, g, hg, k, npt,
+    # the centre (3), t2, inv2t, weighted, negative, stream
+    return _load("exact_rank", [_P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _F,
+                                _F, _F, _F, _I, _I, _P])
 
 
 def load_full_rank() -> ctypes.CDLL:
     """The orientation-weighted ranker library (``csrc/full_rank.cu``), built on first use."""
+    # as exact_rank, with re, ld_re, rs, ld_rs after the blocks and eps after inv2t
     return _load("full_rank", [_P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
-                               _F, _F, _F, _I, _I, _P])
+                               _I, _F, _F, _F, _F, _F, _F, _I, _I, _P])
 
 
 def load_coarse_linear_rank() -> ctypes.CDLL:

@@ -669,6 +669,37 @@ FULL_RANK = _LaunchCounter()
 _TIE_EPS = np.float32(1e-6)  # the TPU kernel's argmin tie tolerance on E (params :578)
 # shared memory one block may hold on an H100 (227 KB, cudaFuncSetAttribute)
 _SMEM_MAX = 232448
+# csrc/exact_rank.cuh: threads per block, the thread tile (poses x points of
+# one kind), and the most pose tiles a block takes
+EXACT_THREADS = 256
+EXACT_TILE = (2, 4)
+_EXACT_MAX_POSE_TILES = EXACT_THREADS
+
+
+def exact_pose_tiles(g: int, hg: int, sms: int) -> int:
+    """Pose tiles per block of B2 / B3 (``npt``, the block ranks ``npt *
+    EXACT_TILE[0]`` poses): the largest power of two <= 256 that leaves no
+    more than half of a block's poses past ``hg`` and puts at least two blocks
+    on each of ``sms`` SMs (1 when nothing does)."""
+    npt = _EXACT_MAX_POSE_TILES
+    while npt > 1:
+        pb = npt * EXACT_TILE[0]
+        if pb // 2 < hg and g * -(-hg // pb) >= 2 * sms:
+            break
+        npt //= 2
+    return npt
+
+
+def exact_smem_bytes(full: bool, ne: int, ns: int, k: int, npt: int) -> int:
+    """Dynamic shared memory of one B2 / B3 block (``exact_rank::Layout``): the
+    blocks' columns, the eligible points (each kind padded to whole tiles) and,
+    in full mode, the reference vectors of both, 16 bytes each; 48 bytes per
+    pose; the survivor list of one round, 8 bytes per thread-tile entry, which
+    at the end holds the per-(thread, pose) partials, 20 bytes each."""
+    tp, tq = EXACT_TILE
+    per = 2 if full else 1
+    lst = max(8 * EXACT_THREADS * tp * tq, 20 * EXACT_THREADS * tp)
+    return 16 * (per * (ne + ns + k + 2 * tq) + 3 * npt * tp) + lst
 
 
 def _inv2t(thres2: float) -> float:
@@ -770,6 +801,42 @@ def score_groups_full_plain(groups: torch.Tensor, poses: torch.Tensor, md_edge: 
                         weighted, negative)
 
 
+def _exact_operand(p: torch.Tensor, q: list) -> tuple[list, torch.Tensor]:
+    """-2 tp and |tp|^2 ([M, Hg] each) of eligible points p [M, 8] under the
+    pose rows q (12 tensors [M, Hg], centre-shifted), in the TPU kernel's
+    order of float32 operations."""
+    px, py, pz = p[:, 0, None], p[:, 1, None], p[:, 2, None]
+    tp = [_fma(q[3 * i + 2], pz, _fma(q[3 * i], px, q[3 * i + 1] * py)) + q[9 + i]
+          for i in range(3)]
+    tp2 = _fma(tp[2], tp[2], _fma(tp[0], tp[0], tp[1] * tp[1]))
+    return [-2.0 * t for t in tp], tp2
+
+
+def exact_pair_d2(groups: torch.Tensor, poses: torch.Tensor, md_edge: torch.Tensor,
+                  md_surf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]:
+    """Every (eligible point, pose) pair's own-kind and other-kind squared
+    distance, in the plain version's arithmetic.
+
+    groups [G, 8, K]; poses [G, Hg, 16] centre-shifted.  Returns (group index
+    [M], point index [M], own-kind d2 [M, Hg], other-kind d2 [M, Hg]) over the
+    M eligible points, group-major: what the survivor shares and the recounted
+    bound of B2 / B3 are counted from."""
+    gi, ki = (groups[:, 4] > 0.5).nonzero(as_tuple=True)
+    pts = groups[gi, :, ki]
+    own, other = [], []
+    mc = max(1, _PLAIN_MAX_ELEMS // max(poses.shape[1] * _PLAIN_REP_CHUNK, 1))
+    for s in range(0, pts.shape[0], mc):
+        p, gs = pts[s:s + mc], gi[s:s + mc]
+        a, tp2 = _exact_operand(p, [poses[gs, :, i] for i in range(12)])
+        d2_e, d2_s = tp2 + _block_min(a, md_edge), tp2 + _block_min(a, md_surf)
+        kind = (p[:, 3, None] > 0.5).expand_as(tp2)
+        own.append(torch.where(kind, d2_e, d2_s))
+        other.append(torch.where(kind, d2_s, d2_e))
+    empty = poses.new_zeros((0, poses.shape[1]))
+    return (gi, ki, torch.cat(own) if own else empty, torch.cat(other) if other else empty)
+
+
 def _exact_plain(groups, poses, md_edge, md_surf, refs, thres2, inv2t, weighted, negative):
     g, _, k = groups.shape
     hg = poses.shape[1]
@@ -784,11 +851,7 @@ def _exact_plain(groups, poses, md_edge, md_surf, refs, thres2, inv2t, weighted,
     for s in range(0, pts.shape[0], mc):
         p, gs = pts[s:s + mc], gi[s:s + mc]
         q = [poses[gs, :, i] for i in range(12)]  # [mc, Hg]
-        px, py, pz = p[:, 0, None], p[:, 1, None], p[:, 2, None]
-        tp = [_fma(q[3 * i + 2], pz, _fma(q[3 * i], px, q[3 * i + 1] * py)) + q[9 + i]
-              for i in range(3)]
-        tp2 = _fma(tp[2], tp[2], _fma(tp[0], tp[0], tp[1] * tp[1]))
-        a = [-2.0 * t for t in tp]
+        a, tp2 = _exact_operand(p, q)
         emin_e, emin_s = _block_min(a, md_edge), _block_min(a, md_surf)
         d2_e, d2_s = tp2 + emin_e, tp2 + emin_s
         kind = (p[:, 3, None] > 0.5).expand_as(tp2)
@@ -864,11 +927,12 @@ def check_exact_parity(got: tuple, ref: tuple, groups: torch.Tensor, poses: torc
     return (float(sdiff.max()) if sdiff.numel() else 0.0), excused
 
 
-def _exact_launch(groups, poses, md_edge, md_surf, thres2, inv2t, weighted, negative,
+def _exact_launch(groups, poses, md_edge, md_surf, center, thres2, inv2t, weighted, negative,
                   refs=None):
     """Launch ``csrc/exact_rank.cu`` (B2), or with ``refs`` = (mref_edge,
     mref_surf) ``csrc/full_rank.cu`` (B3), on the current stream (CUDA
-    tensors only)."""
+    tensors only): uncentred ``poses_to_rows`` rows and the centre as three
+    floats, which the kernel subtracts itself."""
     named = [("groups", groups, 3), ("poses", poses, 3), ("md_edge", md_edge, 2),
              ("md_surf", md_surf, 2)]
     if refs is not None:
@@ -879,6 +943,8 @@ def _exact_launch(groups, poses, md_edge, md_surf, thres2, inv2t, weighted, nega
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
         if t.device != groups.device:
             raise ValueError("groups, poses and blocks must share one device")
+    if not (groups.is_contiguous() and poses.is_contiguous()):
+        raise ValueError("groups and poses must be contiguous")
     g, ch, k = groups.shape
     hg = poses.shape[1]
     ne, ns = md_edge.shape[1], md_surf.shape[1]
@@ -891,22 +957,24 @@ def _exact_launch(groups, poses, md_edge, md_surf, thres2, inv2t, weighted, nega
                          f"not match the blocks' {ne} / {ns} columns")
     if any(t.stride(1) != 1 for _, t, _ in named[2:]):
         raise ValueError("model blocks need unit column stride")
-    # B2 stages (ne + ns + k) float4 of blocks and points, B3 as many again
-    smem = (ne + ns + k) * 16 * (2 if refs is not None else 1)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"{ne} + {ns} model points and K = {k} need {smem} bytes of shared "
-                         f"memory per block, above the card's {_SMEM_MAX}: pack the model "
-                         "with fewer max_points or rank fewer score_neighbors")
-    groups, poses = groups.contiguous(), poses.contiguous()
+    if len(center) != 3:
+        raise ValueError(f"centre {center}")
     score = torch.empty((g, hg), dtype=torch.float32, device=groups.device)
     count = torch.empty((g, hg), dtype=torch.int32, device=groups.device)
     if score.numel() == 0:
         return score, count
+    npt = exact_pose_tiles(g, hg, _sm_count(groups.device))
+    smem = exact_smem_bytes(refs is not None, ne, ns, k, npt)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"{ne} + {ns} model points and K = {k} need {smem} bytes of shared "
+                         f"memory per block, above the card's {_SMEM_MAX}: pack the model "
+                         "with fewer max_points or rank fewer score_neighbors")
     stream = torch.cuda.current_stream(groups.device).cuda_stream
+    f = ctypes.c_float
     head = (groups.data_ptr(), poses.data_ptr(), md_edge.data_ptr(), ne, md_edge.stride(0),
             md_surf.data_ptr(), ns, md_surf.stride(0))
-    tail = (score.data_ptr(), count.data_ptr(), g, hg, k, ctypes.c_float(thres2),
-            ctypes.c_float(inv2t))
+    tail = (score.data_ptr(), count.data_ptr(), g, hg, k, npt, *(f(c) for c in center),
+            f(thres2), f(inv2t))
     if refs is None:
         lib, name, counter = load_exact_rank(), "exact_rank", EXACT_RANK
         err = lib.exact_rank_launch(*head, *tail, int(weighted), int(negative), stream)
@@ -914,12 +982,23 @@ def _exact_launch(groups, poses, md_edge, md_surf, thres2, inv2t, weighted, nega
         lib, name, counter = load_full_rank(), "full_rank", FULL_RANK
         err = lib.full_rank_launch(*head, refs[0].data_ptr(), refs[0].stride(0),
                                    refs[1].data_ptr(), refs[1].stride(0), *tail,
-                                   ctypes.c_float(float(_TIE_EPS)), int(weighted), int(negative), stream)
+                                   f(float(_TIE_EPS)), int(weighted), int(negative), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{getattr(lib, name + '_error_string')(err).decode()}")
     counter.launches += 1
     return score, count
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached per device)."""
+    n = _SMS.get(device)
+    if n is None:
+        n = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
 
 
 def score_groups_exact(mpack: ModelPack, groups: torch.Tensor, poses: torch.Tensor,
@@ -929,15 +1008,15 @@ def score_groups_exact(mpack: ModelPack, groups: torch.Tensor, poses: torch.Tens
     blocks (``score_groups_pallas``): TPU kernel B2 in count mode, B3 in full
     mode.
 
-    groups [G, 8, K]; poses [G, Hg, 16] (``poses_to_rows`` layout, shifted
-    here by ``-mpack.center``).  Returns (score [G, Hg] float32, count
-    [G, Hg] int32).  In count mode the score is the count, or with
-    ``weighted_distance`` / ``negative_scores`` the weighted/signed sum
-    (impl/scene.hpp:468-475); in full mode every counted point's term is
-    weighted by its orientation agreement with the nearest own-kind model
-    point (impl/scene.hpp:469-489).  The count stays the plain correspondence
-    count.  A CUDA tensor runs the Hopper kernel, a CPU tensor the plain
-    version.
+    groups [G, 8, K]; poses [G, Hg, 16] (``poses_to_rows`` layout, shifted by
+    ``-mpack.center`` in the kernel, or here before the plain version).
+    Returns (score [G, Hg] float32, count [G, Hg] int32).  In count mode the
+    score is the count, or with ``weighted_distance`` / ``negative_scores``
+    the weighted/signed sum (impl/scene.hpp:468-475); in full mode every
+    counted point's term is weighted by its orientation agreement with the
+    nearest own-kind model point (impl/scene.hpp:469-489).  The count stays
+    the plain correspondence count.  A CUDA tensor runs the Hopper kernel (one
+    launch), a CPU tensor the plain version.
     """
     if mode not in ("count", "full"):
         raise ValueError(f"mode must be 'count' or 'full', got {mode!r}")
@@ -945,15 +1024,13 @@ def score_groups_exact(mpack: ModelPack, groups: torch.Tensor, poses: torch.Tens
     inv2t = _inv2t(t2)
     md_edge, md_surf = exact_blocks(mpack)
     refs = ref_blocks(mpack) if mode == "full" else None
-    poses = poses.clone()
-    poses[..., 9:12] -= mpack.center
     if groups.device.type == "cuda":
-        return _exact_launch(groups, poses, md_edge, md_surf, t2, inv2t, weighted_distance,
-                             negative_scores, refs)
+        return _exact_launch(groups, poses, md_edge, md_surf, mpack.center_xyz, t2, inv2t,
+                             weighted_distance, negative_scores, refs)
     if groups.device.type != "cpu":
         raise ValueError(f"no exact ranker for device {groups.device}")
-    return _exact_plain(groups, poses, md_edge, md_surf, refs, t2, inv2t, weighted_distance,
-                        negative_scores)
+    return _exact_plain(groups, _centre_shifted(mpack, poses), md_edge, md_surf, refs, t2, inv2t,
+                        weighted_distance, negative_scores)
 
 
 # ---------------------------------------------------------------------------
