@@ -70,6 +70,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the 500k scene: the fog switch fires, B2 (phase 1) and B3
               (phase 2) launched, B1 not, no join overflow, within the
               contract.
+13. radius131, radius500 (run after the fixtures of phases 3 and 9) — the
+              column-chunked ops.knn.radius_sample against one call whose
+              chunk covers the whole row, on one round's real queries and
+              priorities (the scoring neighbourhood and the second-point
+              pool, at the adaptive and fog policies' k): indices and masks
+              equal bit for bit; chunks per call and both times printed.
+14. main2m  — the 2097152-point recall scene, seed 1 (bench.py --dense and
+              scripts/scaling_study.py): B2 against its plain version at the
+              fog route's phase 1 and phase 2 shapes there (Hg = 4096 poses
+              per group), as phase 9 does at 500k; find_all first and warm,
+              within the contract, the fog switch fired, B2 launched and B1
+              not, no join overflow; the effective Hg and the peak memory
+              printed.
+15. jfa     — the LUT of the box model of tests/test_model_index.py built by
+              jump flood (ops/jfa.py) against its brute LUT by that test's
+              distance rule (no index negative, >= 95 % equal, excess
+              distance in (-1e-5, half a voxel diagonal)); the same numbers
+              printed for the recall box model; then compile_model of the graded
+              20000-point lattice model, whose grid takes the jump-flood
+              route; B2 against its plain version at the fog route's phase 1
+              and phase 2 shapes on its 131k recall scene (seed 0), with the
+              lattice's all-edge pack (an empty surface block); find_all on
+              that scene, first and warm, within the contract, the fog switch
+              fired, B2 launched and B1, B3, B4 not, no join overflow.
 
 Every main path runs with all four launch counts set to 0 just before its
 first call and read just after it.  Kernel and plain times are CUDA-event
@@ -84,7 +108,6 @@ import json
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM published peaks (NVIDIA data sheet): 67 TFLOP/s fp32 outside the
 # tensor cores, i.e. 3.35e13 fp32 instructions/s counting an FMA as one, and
@@ -220,6 +243,24 @@ def _profile(tag: str, fn, smi: str) -> dict:
             "syncs": len(syncs), "range_ms": range_ms}
 
 
+def build_kernels(smi: str) -> dict:
+    """Compile the four kernels of this checkout (one nvcc per source, started
+    together), load them, print each build's seconds and ptxas register
+    lines, and return those lines by source."""
+    from triplet_match_tpu_torch.kernels import build as kbuild
+
+    t0 = time.perf_counter()
+    kbuild.build_all(ptxas_info=True)
+    ptxas = {k: " | ".join(ln.strip() for ln in kbuild.BUILD_LOG.get(k, "").splitlines()
+                           if "registers" in ln or "spill" in ln) or "not built in this process"
+             for k in kbuild.SOURCES}
+    for k in kbuild.SOURCES:
+        _log(f"[build] {k}.cu: nvcc {kbuild.BUILD_SECONDS.get(k, 0.0):.2f} s | {ptxas[k]} | {smi}")
+    _log(f"[build] {len(kbuild.SOURCES)} kernels {time.perf_counter() - t0:.2f} s wall (one nvcc "
+         f"each, in parallel) | {smi}")
+    return ptxas
+
+
 def _check_poses(dev, prep, model, t_gt, policy, gen, tag_seed):
     """Neighbourhood groups of ``num_first_samples`` random scene edge points
     (K = score_neighbors, ranking eligibility of ``policy``) and [G, Hg]
@@ -254,10 +295,6 @@ def _check_poses(dev, prep, model, t_gt, policy, gen, tag_seed):
     return groups, rows
 
 
-# the launch counters of score_kernel, by the TPU kernel each replaces
-COUNTERS = {"B1": "COARSE_RANK", "B2": "EXACT_RANK", "B3": "FULL_RANK", "B4": "COARSE_LINEAR_RANK"}
-
-
 def _main_path(tag, sk, driver, search, t_gt, smi):
     """``search()`` twice (first, warm) with every launch count zeroed just
     before the first call; returns (stats, the first call's launches by
@@ -267,14 +304,14 @@ def _main_path(tag, sk, driver, search, t_gt, smi):
     from triplet_match_tpu_torch.io.synthetic import sym_delta
 
     torch.cuda.reset_peak_memory_stats()
-    for c in COUNTERS.values():
-        getattr(sk, c).reset()
+    for c in sk.LAUNCH_COUNTERS.values():
+        c.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     matches = search()
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    launches = {b: getattr(sk, c).launches for b, c in COUNTERS.items()}
+    launches = {b: c.launches for b, c in sk.LAUNCH_COUNTERS.items()}
     stats = dict(driver.LAST_SEARCH_STATS)
     t0 = time.perf_counter()
     matches2 = search()
@@ -430,6 +467,92 @@ def _check_exact(tag, phase, sk, mpack, grp, pr, t2, weighted, negative, full, s
             "warp_sweep_share": warp_share, "kernels_per_call": len(kernels)}
 
 
+def _check_radius(tag, prep, model, policy, gen, smi) -> dict:
+    """The chunked ``radius_sample`` against one call whose chunk covers the
+    whole row, on the driver's queries and priorities of one round (the
+    scoring neighbourhood and the second-point pool): indices and masks must
+    be equal bit for bit."""
+    import torch
+
+    from triplet_match_tpu_torch.core.transforms import strict_fp32
+    from triplet_match_tpu_torch.ops import knn
+    from triplet_match_tpu_torch.ops.knn import radius_chunk_cols, radius_sample
+    from triplet_match_tpu_torch.search.sampling import draw_round, hash_uniform, sample_firsts
+
+    cloud = prep.cloud
+    n, b1 = cloud.capacity, policy.num_first_samples
+    draws = draw_round(gen, b1, policy.second_pool, cloud.device)
+    firsts = sample_firsts(draws.first_words, prep.tangent_mask & cloud.valid, b1)
+    q = cloud.xyz[firsts.idx]
+    blk = min(b1, 256)
+    gidx = torch.arange(n, device=cloud.device)
+    chunks = -(-n // radius_chunk_cols(n, blk))
+    out = {"chunks": chunks}
+    calls = (("neighbourhood", cloud.valid, policy.score_neighbors, draws.nbr_words),
+             ("pool", prep.tangent_mask & cloud.valid, policy.second_pool, draws.pool_words))
+    with strict_fp32():
+        for call, valid, k, words in calls:
+            prio = hash_uniform(words, gidx)
+
+            def run(budget=knn._RADIUS_CHUNK_BYTES):
+                saved, knn._RADIUS_CHUNK_BYTES = knn._RADIUS_CHUNK_BYTES, budget
+                try:
+                    return radius_sample(q, cloud.xyz, valid, model.diameter, k, prio, block=blk)
+                finally:
+                    knn._RADIUS_CHUNK_BYTES = saved
+
+            whole_row = 1 << 62  # a budget whose one chunk covers the whole row
+            got, whole = run(), run(whole_row)
+            if not (torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])):
+                bad = int((got[0] != whole[0]).sum() + (got[1] != whole[1]).sum())
+                raise AssertionError(f"[{tag}] {call}: the chunked radius_sample differs from "
+                                     f"the whole-row call in {bad} entries")
+            ms, whole_ms = _cuda_ms(run, 3), _cuda_ms(lambda: run(whole_row), 3)
+            _log(f"[{tag}] {call}: queries {tuple(q.shape)} x {n} points, k {k}, "
+                 f"{chunks} column chunks of {radius_chunk_cols(n, blk)} | indices and masks "
+                 f"equal to the whole-row call | in the ball {float(got[1].float().mean()):.3f} "
+                 f"of the slots | chunked {ms:.3f} ms, whole row {whole_ms:.3f} ms | {smi}")
+            out[call] = {"ms": ms, "whole_row_ms": whole_ms, "k": k}
+    return out
+
+
+def _check_jfa(tag, model, smi, rule: bool) -> dict:
+    """The jump-flood LUT of ``model`` (compiled through the brute 1-NN)
+    against that brute LUT.  With ``rule``, fail unless it keeps the distance
+    rule of the JAX package's test: no index negative, at least 95 % of
+    voxels equal, and no voxel's point nearer than the true nearest or more
+    than half a voxel diagonal farther."""
+    import torch
+
+    from triplet_match_tpu_torch.ops.jfa import nearest_point_volume
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lut = nearest_point_volume(model.cloud.xyz, model.cloud.valid, model.to_voxel,
+                               extents=model.extents)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    inv = torch.linalg.inv(model.to_voxel.double())
+    ex, ey, ez = model.extents
+    dev = lut.device
+    ijk = torch.stack(torch.meshgrid(*(torch.arange(e, device=dev, dtype=torch.float64)
+                                       for e in (ex, ey, ez)), indexing="ij"), -1).reshape(-1, 3)
+    centers = ijk @ inv[:3, :3].T + inv[:3, 3]
+    xyz = model.cloud.xyz.double()
+    d_true = torch.linalg.vector_norm(xyz[model.lut.reshape(-1)] - centers, dim=1)
+    d_jfa = torch.linalg.vector_norm(xyz[lut.reshape(-1)] - centers, dim=1)
+    excess = d_jfa - d_true
+    voxel = float(torch.linalg.vector_norm(torch.diagonal(inv[:3, :3])))
+    equal = float((lut == model.lut).double().mean())
+    _log(f"[jfa] {tag} grid {model.extents}: jump flood {secs:.3f} s | equal to the brute LUT "
+         f"{100 * equal:.2f} % | excess distance min {float(excess.min()):.3g} max "
+         f"{float(excess.max()):.4g} = {float(excess.max()) / voxel:.4f} voxel diagonals | {smi}")
+    if rule and not (int(lut.min()) >= 0 and equal > 0.95 and float(excess.min()) > -1e-5
+                     and float(excess.max()) < 0.5 * voxel):
+        raise AssertionError(f"[jfa] {tag}: the jump-flood LUT breaks the distance rule")
+    return {"seconds": secs, "equal_share": equal, "excess_max": float(excess.max())}
+
+
 def main() -> int:
     import torch
 
@@ -447,15 +570,18 @@ def main() -> int:
     from triplet_match_tpu_torch.cli import match as cli
     from triplet_match_tpu_torch.core.cloud import PointCloud
     from triplet_match_tpu_torch.core.transforms import strict_fp32
+    from triplet_match_tpu_torch.index.model import _LUT_JFA_THRESHOLD as LUT_JFA_THRESHOLD
     from triplet_match_tpu_torch.index.model import compile_model
     from triplet_match_tpu_torch.io.pcd import write_pcd
     from triplet_match_tpu_torch.io.synthetic import (
+        make_box_model,
+        model_arrays,
         recall_box_model,
         recall_scene,
         recall_scene_arrays,
         sym_delta,
     )
-    from triplet_match_tpu_torch.kernels import build as kbuild
+    from triplet_match_tpu_torch.ops.knn import radius_chunk_cols
     from triplet_match_tpu_torch.search import driver, score_kernel as sk
 
     t_all = time.perf_counter()
@@ -468,20 +594,8 @@ def main() -> int:
 
     # --- build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("coarse_rank", "exact_rank", "full_rank", "coarse_linear_rank")
-    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
-        list(pool.map(lambda k: kbuild.build(k, ptxas_info=True), sources))
-    for load in (kbuild.load_coarse_rank, kbuild.load_exact_rank, kbuild.load_full_rank,
-                 kbuild.load_coarse_linear_rank):
-        load()
+    ptxas = build_kernels(smi)
     walls["build"] = time.perf_counter() - t0
-    ptxas = {k: " | ".join(ln.strip() for ln in kbuild.BUILD_LOG.get(k, "").splitlines()
-                           if "registers" in ln or "spill" in ln) or "not built in this process"
-             for k in sources}
-    for k in sources:
-        _log(f"[build] {k}.cu: nvcc {kbuild.BUILD_SECONDS.get(k, 0.0):.2f} s | {ptxas[k]} | {smi}")
-    _log(f"[build] {len(sources)} kernels {walls['build']:.2f} s wall (one nvcc each, in "
-         f"parallel) | {smi}")
 
     # --- 131k fixture: B1, B4 and B3 ---------------------------------------------
     t0 = time.perf_counter()
@@ -510,6 +624,11 @@ def main() -> int:
                                  fine_points=policy.fine_model_points)
     gen = torch.Generator().manual_seed(1)
     eff_policy, _ = driver.adaptive_policy(prep, model, policy)
+    walls["fixture131"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    radius = {"131k": _check_radius("radius131", prep, model, eff_policy, gen, smi)}
+    walls["radius131"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     groups, rows = _check_poses(dev, prep, model, t_gt, eff_policy, gen, 456)
     hg = rows.shape[1]
     thres = np.float32(3.0) * np.float32(float(model.resolution))
@@ -697,6 +816,11 @@ def main() -> int:
          f"{int(prep5.n_edge)} detected edges, {int(fprep5.n_edge)} raw-tangent edges | ball q95 "
          f"{ball_q:.1f} (ratio {ball_q / policy.score_neighbors:.2f}) | exact blocks "
          f"{mpack.n_edge_cols} edge + {mpack.n_surf_cols} surface columns | {smi}")
+    walls["fixture500"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    radius["500k"] = _check_radius("radius500", fprep5, model, fog5, gen, smi)
+    walls["radius500"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     groups5, rows5 = _check_poses(dev, fprep5, model, t_gt5, fog5, gen, 789)
     hg5 = rows5.shape[1]
     keep5 = sk.two_phase_keep(hg5, fog5.two_phase_keep_frac, fog5.two_phase_pose_tile)
@@ -749,13 +873,109 @@ def main() -> int:
     if stats5f["join_overflow_max"] != 0:
         raise AssertionError(f"the subset join overflowed by {stats5f['join_overflow_max']}")
     walls["main500full"] = time.perf_counter() - t0
+    del scene5, prep5, fprep5, groups5, rows5
+
+    # --- 2M fixture: the bench.py --dense / scaling fixture, seed 1 ---------------------
+    t0 = time.perf_counter()
+    scene2m, t_gt2m = recall_scene(2097152, seed=1, device=dev)
+    with strict_fp32():
+        prep2m = driver.prepare_scene(scene2m, policy)
+    eff2m, _ = driver.adaptive_policy(prep2m, model, policy)
+    fog2m, fprep2m = driver.fog_policy(eff2m, prep2m, model)
+    groups2m, rows2m = _check_poses(dev, fprep2m, model, t_gt2m, fog2m, gen, 999)
+    hg2m = rows2m.shape[1]
+    keep2m = sk.two_phase_keep(hg2m, fog2m.two_phase_keep_frac, fog2m.two_phase_pose_tile)
+    for phase, stride, n_poses in (("2M phase 1", fog2m.two_phase_stride, hg2m),
+                                   ("2M phase 2", fog2m.two_phase_fine_stride, keep2m)):
+        lo = (hg2m - n_poses) // 2  # half near-true poses, half junk
+        b2_phases.append(_check_exact(
+            "B2", phase, sk, mpack, groups2m[:, :, ::stride].contiguous(),
+            rows2m[:, lo:lo + n_poses].contiguous(), t2, False, False, False, smi))
+    del prep2m, fprep2m, groups2m, rows2m
+    walls["B2 2M"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats2m, launches2m, _ = _main_path(
+        "main2m", sk, driver, lambda: driver.find_all(model, scene2m, **kw), t_gt2m, smi)
+    if not stats2m["fine_rescore_full"]:
+        raise AssertionError("the fog-density switch did not fire at 2M")
+    _expect_launches("main2m", launches2m, stats2m, ("B2",), ("B1", "B3", "B4"))
+    if stats2m["join_overflow_max"] != 0:
+        raise AssertionError(f"the subset join overflowed by {stats2m['join_overflow_max']}")
+    if stats2m["num_second_samples_effective"] != eff2m.num_second_samples:
+        raise AssertionError("the B2 2M check ran at other shapes than the search")
+    _log(f"[main2m] effective Hg {hg2m} poses per group ({stats2m['num_second_samples_effective']}"
+         f" second samples x {policy.query_cap} pair candidates), radius_sample "
+         f"{-(-scene2m.capacity // radius_chunk_cols(scene2m.capacity, 256))} column chunks per "
+         f"call | {smi}")
+    del scene2m
+    walls["main2m"] = time.perf_counter() - t0
+
+    # --- jump-flood LUT: the box model, then the lattice model end to end ---------------
+    t0 = time.perf_counter()
+    # the rule's own model (tests/test_model_index.py), then the recall box model, reported
+    test_box = make_box_model(n_edge=180, n_face=420, size=(1, 1, 1), seed=0)
+    _check_jfa("test box model", compile_model(PointCloud.from_arrays(*test_box, device=dev), disc,
+                                               sample, policy), smi, rule=True)
+    _check_jfa("recall box model", model, smi, rule=False)
+    lat = model_arrays("lattice")
+    torch.cuda.synchronize()
+    tc = time.perf_counter()
+    lat_model = compile_model(PointCloud.from_arrays(*lat, device=dev), disc, sample, policy)
+    torch.cuda.synchronize()
+    t_lat = time.perf_counter() - tc
+    _log(f"[jfa] lattice model ({lat[0].shape[0]} points): compile_model {t_lat:.3f} s through "
+         f"the jump flood, grid {lat_model.extents} "
+         f"({int(np.prod(lat_model.extents))} voxels > {LUT_JFA_THRESHOLD}), n_edge "
+         f"{int(lat_model.n_edge)} pairs {int(lat_model.pair_count)} | {smi}")
+    if int(np.prod(lat_model.extents)) <= LUT_JFA_THRESHOLD:
+        raise AssertionError("the lattice model's grid did not take the jump-flood route")
+    scene_lat, t_gt_lat = recall_scene(131072, seed=0, arrays=lat, device=dev)
+    walls["jfa"] = time.perf_counter() - t0
+    # B2 at the lattice's fog shapes: an all-edge pack, so an empty surface block
+    t0 = time.perf_counter()
+    lat_pack = sk.pack_model_cached(lat_model, coarse_points=policy.coarse_model_points,
+                                    fine_points=policy.fine_model_points)
+    thres_lat = np.float32(3.0) * np.float32(float(lat_model.resolution))
+    with strict_fp32():
+        prep_lat = driver.prepare_scene(scene_lat, policy)
+    eff_lat, _ = driver.adaptive_policy(prep_lat, lat_model, policy)
+    fog_lat, fprep_lat = driver.fog_policy(eff_lat, prep_lat, lat_model)
+    groups_lat, rows_lat = _check_poses(dev, fprep_lat, lat_model, t_gt_lat, fog_lat, gen, 321)
+    hg_lat = rows_lat.shape[1]
+    keep_lat = sk.two_phase_keep(hg_lat, fog_lat.two_phase_keep_frac,
+                                 fog_lat.two_phase_pose_tile)
+    _log(f"[B2] lattice pack: exact blocks {lat_pack.n_edge_cols} edge + "
+         f"{lat_pack.n_surf_cols} surface columns | {smi}")
+    for phase, stride, n_poses in (("lattice phase 1", fog_lat.two_phase_stride, hg_lat),
+                                   ("lattice phase 2", fog_lat.two_phase_fine_stride, keep_lat)):
+        lo = (hg_lat - n_poses) // 2  # half near-true poses, half junk
+        b2_phases.append(_check_exact(
+            "B2", phase, sk, lat_pack, groups_lat[:, :, ::stride].contiguous(),
+            rows_lat[:, lo:lo + n_poses].contiguous(), float(thres_lat * thres_lat), False,
+            False, False, smi))
+    del prep_lat, fprep_lat, groups_lat, rows_lat
+    walls["B2 lattice"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats_lat, launches_lat, _ = _main_path(
+        "mainlattice", sk, driver, lambda: driver.find_all(lat_model, scene_lat, **kw), t_gt_lat,
+        smi)
+    if not stats_lat["fine_rescore_full"]:
+        raise AssertionError("the fog-density switch did not fire on the lattice")
+    _expect_launches("mainlattice", launches_lat, stats_lat, ("B2",), ("B1", "B3", "B4"))
+    if stats_lat["join_overflow_max"] != 0:
+        raise AssertionError(f"the subset join overflowed by {stats_lat['join_overflow_max']}")
+    if stats_lat["num_second_samples_effective"] != eff_lat.num_second_samples:
+        raise AssertionError("the B2 lattice check ran at other shapes than the search")
+    del scene_lat, lat_model
+    walls["mainlattice"] = time.perf_counter() - t0
     walls["total"] = time.perf_counter() - t_all
     _log(f"[wall] seconds per phase {json.dumps({k: round(v, 3) for k, v in walls.items()})} | "
          f"{smi}")
 
     paths = {"main131": launches131, "main131full": launches_full131,
              "main131lin": launches_lin131, "main500": launches500,
-             "main500full": launches_full500}
+             "main500full": launches_full500, "main2m": launches2m,
+             "mainlattice": launches_lat}
 
     def entry(b, name, source, replaces, path, phases):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from triplet_match_tpu_torch.core.cloud import PointCloud
+from triplet_match_tpu_torch.core.transforms import fma32
 from triplet_match_tpu_torch.io.synthetic import embed_in_scene, make_box_model
 from triplet_match_tpu_torch.search import score_kernel as sk
 
@@ -85,7 +86,7 @@ def _skip_sweep(groups, poses, md_edge, md_surf, refs, t2, inv2t, weighted, nega
             mi, hi = (ok & own).nonzero(as_tuple=True)
             qs = [qi[mi, hi] for qi in q[:9]]
             rx, ry, rz = p[mi, 5], p[mi, 6], p[mi, 7]
-            tr = [sk._fma(qs[3 * i + 2], rz, sk._fma(qs[3 * i], rx, qs[3 * i + 1] * ry))
+            tr = [fma32(qs[3 * i + 2], rz, fma32(qs[3 * i], rx, qs[3 * i + 1] * ry))
                   for i in range(3)]
             wam[mi, hi] = sk._orientation_weight([ai[mi, hi] for ai in a], tr, thr[mi, hi],
                                                  blk, ref)

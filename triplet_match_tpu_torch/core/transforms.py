@@ -45,6 +45,14 @@ def strict_fp32():
         torch.backends.cudnn.allow_tf32 = prev_dnn
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 fused multiply-add ``a * b + c``, the FMA that XLA fuses on
+    the CPU (ROADMAP C7), exact through float64 (a*b of two float32 values is
+    exact in float64; the sum rounds once more on the way down, which differs
+    from one rounding in ~2^-29 of cases)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=eps)
 

@@ -6,8 +6,9 @@
 * The ``unordered_multimap<discrete_feature, (i, j)>`` becomes a sorted key
   table queried by ``searchsorted`` plus a bounded even-stride gather.
 
-Only the brute 1-NN LUT is ported; grids above ``_LUT_JFA_THRESHOLD`` voxels
-need the jump-flood build (``ops/jfa.py``), which is still to port.
+Grids above ``_LUT_JFA_THRESHOLD`` voxels build the LUT by jump flood
+(``ops/jfa.nearest_point_volume``), as the JAX package does; smaller ones by
+the exact brute 1-NN.
 """
 
 from __future__ import annotations
@@ -30,10 +31,12 @@ from triplet_match_tpu_torch.core.transforms import strict_fp32
 from triplet_match_tpu_torch.features import discretize as dz
 from triplet_match_tpu_torch.features import pairfeat as pf
 from triplet_match_tpu_torch.ops import knn as knn_ops
+from triplet_match_tpu_torch.ops.jfa import nearest_point_volume
 from triplet_match_tpu_torch.ops.curvature import edge_mask as edge_mask_op
 from triplet_match_tpu_torch.ops.curvature import principal_curvatures
 
 _INVALID_KEY = 0xFFFFFFFF
+# voxels above which the LUT builds by jump flood instead of brute 1-NN
 _LUT_JFA_THRESHOLD = 2_000_000
 _MAX_LUT_VOXELS = 134_217_728
 
@@ -171,17 +174,18 @@ def _build(cloud, edge, edge_idx, edge_idx_valid, to_voxel, res, dia, lower_boun
     dev = cloud.device
     ex, ey, ez = extents
     if ex * ey * ez > _LUT_JFA_THRESHOLD:
-        raise NotImplementedError(
-            f"voxel grid {extents} exceeds {_LUT_JFA_THRESHOLD} voxels: the jump-flood "
-            "LUT build (ops/jfa.py) is not ported yet (ROADMAP queue A)")
-    inv = torch.linalg.inv(to_voxel)
-    ii, jj, kk = torch.meshgrid(
-        torch.arange(ex, dtype=torch.float32, device=dev),
-        torch.arange(ey, dtype=torch.float32, device=dev),
-        torch.arange(ez, dtype=torch.float32, device=dev), indexing="ij")
-    centers = torch.stack([ii, jj, kk], dim=-1).reshape(-1, 3) @ inv[:3, :3].T + inv[:3, 3]
-    lut_idx, _ = knn_ops.nn1(centers, cloud.xyz, cloud.valid)
-    lut = lut_idx.reshape(ex, ey, ez)
+        # big grids (densely sampled models): the jump flood, O(V log V) with
+        # no O(V * N) term; almost exact (ops/jfa.py)
+        lut = nearest_point_volume(cloud.xyz, cloud.valid, to_voxel, extents=extents)
+    else:
+        inv = torch.linalg.inv(to_voxel)
+        ii, jj, kk = torch.meshgrid(
+            torch.arange(ex, dtype=torch.float32, device=dev),
+            torch.arange(ey, dtype=torch.float32, device=dev),
+            torch.arange(ez, dtype=torch.float32, device=dev), indexing="ij")
+        centers = torch.stack([ii, jj, kk], dim=-1).reshape(-1, 3) @ inv[:3, :3].T + inv[:3, 3]
+        lut_idx, _ = knn_ops.nn1(centers, cloud.xyz, cloud.valid)
+        lut = lut_idx.reshape(ex, ey, ez)
 
     exyz = cloud.xyz[edge_idx]
     etan = cloud.tangent[edge_idx]

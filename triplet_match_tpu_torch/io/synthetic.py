@@ -1,10 +1,11 @@
 """Synthetic clouds for tests, benchmarks and the chip smoke run.
 
 jax-free copies of the generators in ``triplet_match_tpu.io.synthetic``
-(the same numpy draws, so the same clouds bit for bit), plus
-``recall_scene``, the 131k touching-fog recall-protocol fixture of
-``scripts/recall_study.py``, and ``sym_delta``, the box-symmetry-aware pose
-error of ``scripts/run_baseline_configs.py``.
+(the same numpy draws, so the same clouds bit for bit), plus the recall
+protocol of ``scripts/recall_study.py``, its model families
+(``model_arrays``) and its touching-fog scene (``recall_scene``), and
+``sym_delta``, the box-symmetry-aware pose error of
+``scripts/run_baseline_configs.py``.
 """
 
 from __future__ import annotations
@@ -152,6 +153,68 @@ def embed_in_scene(model_xyz, model_normal, model_tangent, *, rotation=None, tra
 def recall_box_model():
     """The recall protocol's box model: 600 edge + 1800 face points."""
     return make_box_model(n_edge=600, n_face=1800, size=(1.0, 0.8, 0.6), seed=0)
+
+
+def make_lattice_model(cells: int = 4, n_edge: int = 20000, size: float = 1.0, seed: int = 0,
+                       jitter: float = 0.0, graded: bool = False):
+    """Wireframe lattice "scaffold" model: every point is an edge point, on the
+    axis-aligned beams of a (cells x cells x cells) grid, tangents along the
+    beam, normals radial.  ``graded`` spaces the grid planes geometrically,
+    which breaks the lattice's self-symmetries.
+
+    Returns (xyz, normal, tangent) float32 arrays with ~n_edge points.
+    """
+    rng = np.random.default_rng(seed)
+    if graded:
+        u = np.geomspace(1.0, 2.0, cells + 1)
+        lin = (size * (u - u[0]) / (u[-1] - u[0]) - size / 2).astype(np.float32)
+    else:
+        lin = np.linspace(-size / 2, size / 2, cells + 1).astype(np.float32)
+
+    beams = []  # (vary axis, fixed axes, fixed coords)
+    for vary in range(3):
+        fixed = [a for a in range(3) if a != vary]
+        for fa in lin:
+            for fb in lin:
+                beams.append((vary, fixed, fa, fb))
+    per_beam = max(n_edge // len(beams), 2)
+
+    pts, tans, nrms = [], [], []
+    for vary, fixed, fa, fb in beams:
+        t = rng.uniform(-size / 2, size / 2, per_beam).astype(np.float32)
+        p = np.zeros((per_beam, 3), np.float32)
+        p[:, vary] = t
+        p[:, fixed[0]] = fa
+        p[:, fixed[1]] = fb
+        tg = np.zeros((per_beam, 3), np.float32)
+        tg[:, vary] = 1.0
+        theta = rng.uniform(0, 2 * np.pi, per_beam).astype(np.float32)
+        nm = np.zeros((per_beam, 3), np.float32)
+        nm[:, fixed[0]] = np.cos(theta)
+        nm[:, fixed[1]] = np.sin(theta)
+        pts.append(p)
+        tans.append(tg)
+        nrms.append(nm)
+
+    xyz = np.concatenate(pts)
+    tangent = np.concatenate(tans)
+    normal = np.concatenate(nrms)
+    if jitter > 0:
+        xyz = xyz + rng.normal(0, jitter, xyz.shape).astype(np.float32)
+    return xyz.astype(np.float32), normal.astype(np.float32), tangent.astype(np.float32)
+
+
+def model_arrays(kind: str = "box"):
+    """The recall protocol's model families (``scripts/recall_study.py
+    --model``): ``box`` (600 edge + 1800 face points), ``low-edge`` (120 +
+    2280) and ``lattice`` (the graded 20000-point scaffold)."""
+    if kind == "box":
+        return recall_box_model()
+    if kind == "low-edge":
+        return make_box_model(n_edge=120, n_face=2280, size=(1.0, 0.8, 0.6), seed=0)
+    if kind == "lattice":
+        return make_lattice_model(cells=4, n_edge=20000, graded=True, seed=0)
+    raise ValueError(f"unknown model kind {kind!r}")
 
 
 def recall_scene_arrays(n_points: int, seed: int, arrays=None):

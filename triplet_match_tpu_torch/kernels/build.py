@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -110,3 +111,24 @@ def load_coarse_linear_rank() -> ctypes.CDLL:
     """The linearised coarse-ranker library (``csrc/coarse_linear_rank.cu``), built on first use."""
     return _load("coarse_linear_rank", _COARSE_ARGS)
 
+
+# every kernel source with its loader: the TPU kernels B1, B2, B3 and B4, in order
+SOURCES = {"coarse_rank": load_coarse_rank, "exact_rank": load_exact_rank,
+           "full_rank": load_full_rank, "coarse_linear_rank": load_coarse_linear_rank}
+
+
+def build_all(ptxas_info: bool = False) -> None:
+    """Compile every kernel source (one ``nvcc`` each, started together) and
+    load each library; ``ptxas_info`` as in ``build``."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(lambda name: build(name, ptxas_info=ptxas_info), SOURCES))
+    for load in SOURCES.values():
+        load()
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

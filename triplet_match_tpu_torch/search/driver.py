@@ -202,6 +202,47 @@ def hypothesize_and_score(model: CompiledModel, prep: ScenePrep, consumed: torch
     return ts.reshape(-1, 4, 4), scores, firsts.idx, firsts.valid, hyp_ok.sum()
 
 
+# Finalist x scene rows that one batched pass of the join may hold (the JAX
+# package's budget): above it the finalists run in chunks of the largest
+# batch that fits, so no [F, N, 3] temporary outgrows it at 2M-8M points.
+_FINALIST_ROW_BUDGET = 8 * 1024 * 1024
+
+
+def _tuple(like, items):
+    """A tuple or NamedTuple of ``like``'s type holding ``items``."""
+    return type(like)(*items) if hasattr(like, "_fields") else tuple(items)
+
+
+def _rows(x, s: int, e: int):
+    """Finalists ``s:e`` of a per-finalist tensor, cloud or tuple of them."""
+    if isinstance(x, torch.Tensor):
+        return x[s:e]
+    if isinstance(x, cl.PointCloud):
+        return cl.PointCloud(x.xyz[s:e], x.normal[s:e], x.tangent[s:e], x.valid[s:e])
+    return _tuple(x, (_rows(v, s, e) for v in x))
+
+
+def _cat(parts):
+    """Concatenate per-chunk results (tensors or NamedTuples of them) along
+    the finalist dim."""
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)
+    return _tuple(parts[0], (_cat(list(p)) for p in zip(*parts)))
+
+
+def _finalist_map(fn, ts, rows: int, *extra):
+    """``fn(ts, *extra)`` over the finalist poses ``ts`` [F, 4, 4] (and the
+    per-finalist ``extra`` inputs), in chunks of finalists when F x ``rows``
+    exceeds ``_FINALIST_ROW_BUDGET``.  Finalists are independent, so chunking
+    only regroups the work (batched and unbatched SVDs may round apart)."""
+    f = ts.shape[0]
+    if f * rows <= _FINALIST_ROW_BUDGET:
+        return fn(ts, *extra)
+    fc = max(1, _FINALIST_ROW_BUDGET // max(rows, 1))
+    return _cat([fn(ts[s:s + fc], *(_rows(x, s, s + fc) for x in extra))
+                 for s in range(0, f, fc)])
+
+
 def _auto_join_capacity(n_scene: int) -> int:
     """Fog-switch default for ``policy.join_subset_capacity``: the power of
     two of max(65536, N/16), at most N.  The in-grid candidate population of
@@ -229,6 +270,7 @@ def _candidate_subset(model: CompiledModel, cloud, tangent_mask, consumed, ts, d
     n_candidates), each with a leading finalist dim; padding rows carry
     index N, valid=False and consumed=True.  ``n_candidates`` above
     ``capacity`` means the subset passes undercounted (the join overflow).
+    Finalists are scanned in chunks of ``_FINALIST_ROW_BUDGET`` scene rows.
     """
     n = cloud.capacity
     cap = int(min(int(capacity), n))
@@ -236,15 +278,17 @@ def _candidate_subset(model: CompiledModel, cloud, tangent_mask, consumed, ts, d
     hi = torch.tensor(model.lut.shape, dtype=torch.float32, device=cloud.device) - 1.0
     s_vox = relaxed_w * float(_f32(slack)) * torch.diagonal(model.to_voxel)[:3] + 1.5
 
-    m = model.to_voxel @ ts  # scene point -> voxel coordinates, one affine
-    v = cloud.xyz @ m[:, :3, :3].transpose(-1, -2) + m[:, None, :3, 3]
-    mask = ((v >= -s_vox) & (v <= hi + s_vox)).all(-1) & cloud.valid
-    slot = torch.cumsum(mask, dim=-1) - 1
-    slot = torch.where(mask & (slot < cap), slot, cap)  # overflow and misses -> dump column
-    idx = torch.full((ts.shape[0], cap + 1), n, dtype=torch.int64, device=ts.device)
-    ar = torch.arange(n, device=ts.device).expand_as(slot)
-    idx = idx.scatter(1, slot, ar)[:, :cap]
-    n_cand = mask.sum(-1)
+    def one(t):
+        m = model.to_voxel @ t  # scene point -> voxel coordinates, one affine
+        v = cloud.xyz @ m[:, :3, :3].transpose(-1, -2) + m[:, None, :3, 3]
+        mask = ((v >= -s_vox) & (v <= hi + s_vox)).all(-1) & cloud.valid
+        slot = torch.cumsum(mask, dim=-1) - 1
+        slot = torch.where(mask & (slot < cap), slot, cap)  # overflow and misses -> dump column
+        idx = torch.full((t.shape[0], cap + 1), n, dtype=torch.int64, device=t.device)
+        idx = idx.scatter(1, slot, torch.arange(n, device=t.device).expand_as(slot))
+        return idx[:, :cap], mask.sum(-1)
+
+    idx, n_cand = _finalist_map(one, ts, n)  # no [F, N] temporaries above the budget
     idx_valid = idx < n
     idxc = torch.clamp(idx, max=n - 1)
     sub = cl.PointCloud(cloud.xyz[idxc], cloud.normal[idxc], cloud.tangent[idxc],
@@ -272,7 +316,8 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
     pass per finalist (ranking eligibility, ``_rank_on_all``) keeps a stable
     top-``finalist_prescreen``.  With ``join_subset_capacity`` below the
     scene size, every scene-sized pass runs on per-finalist candidate
-    subsets, regathered at each phase boundary.  Returns (t_fin, accept,
+    subsets, regathered at each phase boundary.  Every scene-sized pass maps
+    its finalists through ``_finalist_map``.  Returns (t_fin, accept,
     new_corr, model_idx, counts, scores, consumed', join_overflow), the last
     the worst candidate overflow of the subset passes (0 when exact or off).
     """
@@ -295,10 +340,11 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
 
         if use_subset:
             sub, stm, scons, _, _, n_cand = subset(t_best)
-            pre = pre_count(t_best, sub, stm, scons)
+            pre = _finalist_map(pre_count, t_best, cap, sub, stm, scons)
             join_overflow = torch.maximum(join_overflow, n_cand.max() - cap)
         else:
-            pre = pre_count(t_best, cloud, tangent_mask, consumed)
+            pre = _finalist_map(lambda t: pre_count(t, cloud, tangent_mask, consumed), t_best,
+                                n_scene)
         # ties break toward the higher-ranked hypothesis, as lax.top_k does
         t_best = t_best[torch.sort(pre, descending=True, stable=True)[1][:keep]]
 
@@ -313,12 +359,12 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
 
     if use_subset:
         sub, stm, scons, s_idx, s_ivalid, n_cand = subset(t_best)
-        res = icp(t_best, sub, stm, scons)
+        res = _finalist_map(icp, t_best, cap, sub, stm, scons)
         join_overflow = torch.maximum(join_overflow, n_cand.max() - cap)
         corr_valid, corr_midx = _scatter_corrs(s_idx, s_ivalid, res.corrs.valid,
                                                res.corrs.model_idx, n_scene)
     else:
-        res = icp(t_best, cloud, tangent_mask, consumed)
+        res = _finalist_map(lambda t: icp(t, cloud, tangent_mask, consumed), t_best, n_scene)
         corr_valid, corr_midx = res.corrs.valid, res.corrs.model_idx
     t_fin, fin_counts, fin_scores = res.transform, res.corrs.count, res.corrs.score
 
@@ -379,15 +425,16 @@ def polish_accepted(model, cloud, tangent_mask, consumed, dist_thres, policy, t_
     if 0 < cap < n_scene:
         sub, stm, scons, _, _, _ = _candidate_subset(model, cloud, tangent_mask, consumed, t_fin,
                                                      dist_thres, cap, policy.join_subset_slack)
-        t_pol = polish(t_fin, sub, stm, scons)
+        t_pol = _finalist_map(polish, t_fin, cap, sub, stm, scons)
         sub, stm, scons, p_idx, p_ivalid, _ = _candidate_subset(
             model, cloud, tangent_mask, consumed, t_pol, dist_thres, cap,
             policy.join_subset_slack)
-        corrs = claim_pass(t_pol, sub, stm, scons)
+        corrs = _finalist_map(claim_pass, t_pol, cap, sub, stm, scons)
         corr_v, corr_m = _scatter_corrs(p_idx, p_ivalid, corrs.valid, corrs.model_idx, n_scene)
     else:
-        t_pol = polish(t_fin, cloud, tangent_mask, consumed)
-        corrs = claim_pass(t_pol, cloud, tangent_mask, consumed)
+        t_pol = _finalist_map(lambda t: polish(t, cloud, tangent_mask, consumed), t_fin, n_scene)
+        corrs = _finalist_map(lambda t: claim_pass(t, cloud, tangent_mask, consumed), t_pol,
+                              n_scene)
         corr_v, corr_m = corrs.valid, corrs.model_idx
     used = consumed
     new_ord = []

@@ -37,6 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from triplet_match_tpu_torch.core.transforms import fma32
 from triplet_match_tpu_torch.kernels.build import (
     load_coarse_linear_rank,
     load_coarse_rank,
@@ -303,13 +304,6 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 fused multiply-add, exact through float64 (a*b of two float32
-    values is exact in float64; the sum rounds once more on the way down,
-    which differs from one rounding in ~2^-29 of cases)."""
-    return (a.double() * b.double() + c.double()).float()
-
-
 # the plain ranker sweeps this many representatives, and about this many
 # (pose, point, rep) triples, at a time: its temporaries stay in cache
 _PLAIN_REP_CHUNK = 16
@@ -331,7 +325,7 @@ def _coarse_hits(a: list, hi: torch.Tensor, lo: torch.Tensor, block: torch.Tenso
     for r0 in range(0, block.shape[1], _PLAIN_REP_CHUNK):
         m = block[:, r0:r0 + _PLAIN_REP_CHUNK]
         d = a0 * m[0]
-        d = (a1 * m[1].double() + d).float()  # fused multiply-add, see _fma
+        d = (a1 * m[1].double() + d).float()  # fused multiply-add, see fma32
         d = (a2 * m[2].double() + d).float()
         # channel 3: -2w * w_rep is 0 or -2 off^2 (off a power of two), exact
         # in float32, so its fused multiply-add is a plain add
@@ -356,9 +350,9 @@ def _coarse_operand(groups: torch.Tensor, poses: torch.Tensor, off: float):
     w = off * groups[:, None, 3, :]
     inelig = (1.0 - groups[:, None, 4, :]) * float(_BIG)
     q = [poses[:, :, i, None] for i in range(12)]  # [G, Hg, 1]
-    tp = [_fma(q[3 * i + 2], pz, _fma(q[3 * i], px, q[3 * i + 1] * py)) + q[9 + i]
+    tp = [fma32(q[3 * i + 2], pz, fma32(q[3 * i], px, q[3 * i + 1] * py)) + q[9 + i]
           for i in range(3)]
-    tp2 = _fma(tp[2], tp[2], _fma(tp[0], tp[0], tp[1] * tp[1])) + w * w + inelig
+    tp2 = fma32(tp[2], tp[2], fma32(tp[0], tp[0], tp[1] * tp[1])) + w * w + inelig
     return [-2.0 * tp[0], -2.0 * tp[1], -2.0 * tp[2], (-2.0 * w).expand_as(tp2)], tp2
 
 
@@ -556,10 +550,10 @@ def coarse_linear_rows(poses: torch.Tensor) -> torch.Tensor:
     """
     r = poses[..., :9].unflatten(-1, (3, 3))
     t = poses[..., 9:12]
-    rt_t = torch.stack([_fma(r[..., 2, i], t[..., 2], _fma(r[..., 1, i], t[..., 1],
+    rt_t = torch.stack([fma32(r[..., 2, i], t[..., 2], fma32(r[..., 1, i], t[..., 1],
                                                           r[..., 0, i] * t[..., 0]))
                         for i in range(3)], -1)
-    t2n = _fma(t[..., 2], t[..., 2], _fma(t[..., 1], t[..., 1], t[..., 0] * t[..., 0]))
+    t2n = fma32(t[..., 2], t[..., 2], fma32(t[..., 1], t[..., 1], t[..., 0] * t[..., 0]))
     wm = torch.zeros(poses.shape[:-1] + (8, _LIN_C), dtype=torch.float32, device=poses.device)
     wm[..., 0:3, 0:3] = -2.0 * r
     wm[..., 0:3, 5] = -2.0 * t
@@ -605,13 +599,13 @@ def _coarse_linear_operand(groups: torch.Tensor, wrows: torch.Tensor, off: float
     x, y, z = (groups[:, None, c, :] for c in range(3))  # [G, 1, K]
     w = off * groups[:, None, 3, :]
     inelig = (1.0 - groups[:, None, 4, :]) * float(_BIG)
-    p2 = _fma(z, z, _fma(x, x, y * y)) + w * w + inelig
+    p2 = fma32(z, z, fma32(x, x, y * y)) + w * w + inelig
     statics = [x, y, z, *_bf16_split(p2), torch.ones_like(x), w]
 
     def row(i):
         acc = wrows[:, :, i, 0, None] * statics[0]
         for c in range(1, _LIN_C):
-            acc = _fma(wrows[:, :, i, c, None], statics[c], acc)
+            acc = fma32(wrows[:, :, i, c, None], statics[c], acc)
         return acc  # [G, Hg, K]
 
     return [row(i) for i in range(4)], row(6)
@@ -666,6 +660,9 @@ def score_groups_coarse_linear(mpack: ModelPack, groups: torch.Tensor, poses: to
 
 EXACT_RANK = _LaunchCounter()
 FULL_RANK = _LaunchCounter()
+# every launch counter, by the TPU kernel its kernel replaces
+LAUNCH_COUNTERS = {"B1": COARSE_RANK, "B2": EXACT_RANK, "B3": FULL_RANK,
+                   "B4": COARSE_LINEAR_RANK}
 _TIE_EPS = np.float32(1e-6)  # the TPU kernel's argmin tie tolerance on E (params :578)
 # shared memory one block may hold on an H100 (227 KB, cudaFuncSetAttribute)
 _SMEM_MAX = 232448
@@ -731,7 +728,7 @@ def _block_e(a: list, m: torch.Tensor) -> torch.Tensor:
     (x, y, z), then |m|^2 added.  a: [-2tx, -2ty, -2tz], each [...];
     returns [..., C]."""
     e = a[0][..., None] * m[0]
-    e = (a[1][..., None].double() * m[1].double() + e).float()  # fused multiply-add, see _fma
+    e = (a[1][..., None].double() * m[1].double() + e).float()  # fused multiply-add, see fma32
     e = (a[2][..., None].double() * m[2].double() + e).float()
     return e + m[3]
 
@@ -755,7 +752,7 @@ def _orientation_weight(a: list, tr: list, thr: torch.Tensor, block: torch.Tenso
     for r0 in range(0, block.shape[1], _PLAIN_REP_CHUNK):
         sel = _block_e(a, block[:, r0:r0 + _PLAIN_REP_CHUNK]) <= thr[:, None]
         mr = refs[:, r0:r0 + _PLAIN_REP_CHUNK]
-        w = _fma(tr[2][:, None], mr[2], _fma(tr[1][:, None], mr[1], tr[0][:, None] * mr[0]))
+        w = fma32(tr[2][:, None], mr[2], fma32(tr[1][:, None], mr[1], tr[0][:, None] * mr[0]))
         wsum += torch.where(sel, w, 0.0).double().sum(-1)
         ties += sel.sum(-1)
     return (wsum.float() / torch.clamp(ties, min=1).float()).abs()
@@ -806,9 +803,9 @@ def _exact_operand(p: torch.Tensor, q: list) -> tuple[list, torch.Tensor]:
     pose rows q (12 tensors [M, Hg], centre-shifted), in the TPU kernel's
     order of float32 operations."""
     px, py, pz = p[:, 0, None], p[:, 1, None], p[:, 2, None]
-    tp = [_fma(q[3 * i + 2], pz, _fma(q[3 * i], px, q[3 * i + 1] * py)) + q[9 + i]
+    tp = [fma32(q[3 * i + 2], pz, fma32(q[3 * i], px, q[3 * i + 1] * py)) + q[9 + i]
           for i in range(3)]
-    tp2 = _fma(tp[2], tp[2], _fma(tp[0], tp[0], tp[1] * tp[1]))
+    tp2 = fma32(tp[2], tp[2], fma32(tp[0], tp[0], tp[1] * tp[1]))
     return [-2.0 * t for t in tp], tp2
 
 
@@ -871,7 +868,7 @@ def _exact_plain(groups, poses, md_edge, md_surf, refs, thres2, inv2t, weighted,
                     continue
                 qs = [qi[pi, hi] for qi in q[:9]]
                 rx, ry, rz = p[pi, 5], p[pi, 6], p[pi, 7]
-                tr = [_fma(qs[3 * i + 2], rz, _fma(qs[3 * i], rx, qs[3 * i + 1] * ry))
+                tr = [fma32(qs[3 * i + 2], rz, fma32(qs[3 * i], rx, qs[3 * i + 1] * ry))
                       for i in range(3)]
                 wam[pi, hi] = _orientation_weight([ai[pi, hi] for ai in a], tr, thr[pi, hi],
                                                   blk, ref)
