@@ -26,6 +26,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
               pose's operand arithmetic, with the all-representative count
               printed beside, and their lines carry the ptxas registers and
               spills.
+3b. C18    — B1 and B4 at gates above the squared kind offset, where the
+              launcher sets the kernels' cross-kind sweep, at the 131k phase-2
+              shapes: a block without edge representatives (a model without
+              edge points) at the gate off^2 + t2, and the poses moved 100
+              kind offsets away at the median distance of the pairs whose
+              nearest representative is of the other kind; each kernel
+              against its plain version with no near-gate excuse, on data
+              with pairs that hit only through the other kind.
 4. main131  — compile the 2400-point box model, build the 131072-point
               touching-fog recall scene (seed 0), prepare it, and run
               find_all with the recall-protocol settings twice (first and
@@ -94,6 +102,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
               lattice's all-edge pack (an empty surface block); find_all on
               that scene, first and warm, within the contract, the fog switch
               fired, B2 launched and B1, B3, B4 not, no join overflow.
+16. multi1m — BASELINE config 5 at full size through api.MultiMatcher: box
+              models A and B (2400 points each) planted in 1M points of fog
+              patches, raycast-verified from five origins (min_cast_score
+              None), first call and warm: each model's first match within
+              1 mm / 0.5 deg, the fog switch fired and B2 alone launched for
+              both, every cast score in (0, 1], the pruned cast equal to the
+              brute one bit for bit on each model's first match from the
+              first origin; search and raycast seconds, cone survivors per
+              origin and the peak memory printed.
+17. prim    — BASELINE configs 1 and 2 at full size: plane detection in 10k
+              points (recall >= 0.99, clutter rate <= 0.01) and cylinder
+              detection in 12k (radius within 1 mm, recall >= 0.99).
 
 Every main path runs with all four launch counts set to 0 just before its
 first call and read just after it.  Kernel and plain times are CUDA-event
@@ -467,6 +487,188 @@ def _check_exact(tag, phase, sk, mpack, grp, pr, t2, weighted, negative, full, s
             "warp_sweep_share": warp_share, "kernels_per_call": len(kernels)}
 
 
+def _check_cross_kind(sk, pack, grp, pr, t2, case, smi) -> list:
+    """B1 and B4 at a gate above the squared kind offset (ROADMAP C18), where
+    the launcher sets the kernels' ``cross`` sweep: ``one_kind_block`` (a
+    block without edge representatives, the gate off^2 + t2) or
+    ``far_poses`` (the poses moved 100 kind offsets away, the gate the median
+    distance of the pairs whose nearest representative is of the other
+    kind).  Each kernel against its plain version with no near-gate excuse,
+    on data with pairs that hit only through the other kind; returns B1's
+    and B4's phase records.  The bound counts every real representative for
+    every eligible point (what the cross sweep does)."""
+    import torch
+
+    shifted = pr.clone()
+    shifted[..., 9:12] -= pack.center
+    if case == "far_poses":
+        gen = torch.Generator().manual_seed(9)
+        d = torch.randn(pr.shape[:2] + (3,), generator=gen).to(pr.device)
+        shifted[..., 9:12] = 100.0 * pack.kind_off * d / d.norm(dim=-1, keepdim=True)
+        pr = shifted.clone()
+        pr[..., 9:12] += pack.center
+    own, best = sk.kind_minima(grp, shifted, pack.md_fine, pack.kind_off)
+    gate = (pack.kind_off ** 2 + t2 if case == "one_kind_block"
+            else float(best[best < own].median()))
+    n_cross = int(((best <= gate) & (own > gate)).sum())
+    if n_cross == 0 or not sk._cross_kind(1.05 * gate, gate, pack.kind_off):
+        raise AssertionError(f"[C18] {case}: the data does not reach the cross-kind path")
+    block, n_edge, n_reps, args = sk._coarse_inputs(pack, grp, 1.05 * gate, gate, "fine", False)
+    el = grp[:, 4] > 0.5
+    pairs = float(el.sum()) * pr.shape[1]
+    nbytes = _nbytes(grp, pr, block) + 4 * grp.shape[0] * pr.shape[1]
+    records = []
+    for tag, kernel, plain, per_pair, per_pose in (
+            ("B1", lambda: sk.score_groups_coarse(pack, grp, pr, 1.05 * gate, gate,
+                                                  block="fine"),
+             lambda: sk.score_groups_coarse_plain(grp, shifted, block, *args), 20.0, 3.0),
+            ("B4", lambda: sk.score_groups_coarse_linear(pack, grp, pr, 1.05 * gate, gate,
+                                                         block="fine"),
+             lambda: sk.score_groups_coarse_linear_plain(grp, sk.coarse_linear_rows(shifted),
+                                                         block, *args), 21.0, 15.0)):
+        got = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        err, n_near = sk.check_coarse_parity(got, ref, grp, shifted, block, 1.05 * gate,
+                                             pack.kind_off, gate, False)
+        if n_near:
+            raise AssertionError(f"[{tag}] C18 {case}: {n_near} poses differ from the plain "
+                                 "version")
+        ms = _cuda_ms(kernel, 10)
+        plain_ms = _cuda_ms(plain, 1)
+        bound_ms, bound_by = _bound(7.0 * pairs * n_reps + per_pair * pairs
+                                    + per_pose * grp.shape[0] * pr.shape[1], nbytes)
+        _log(f"[{tag}] C18 cross-kind sweep, {case}: groups {tuple(grp.shape)} poses "
+             f"{tuple(pr.shape)} block {tuple(block.shape)} ({n_edge} edge + "
+             f"{n_reps - n_edge} surface reps), gate {gate:.6g} (kind_off^2 "
+             f"{pack.kind_off ** 2:g}), pairs hit only through the other kind {n_cross} | "
+             f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+             f"({bound_by}) | max |kernel-plain| {err:.3g}, near-gate poses {n_near} | hits "
+             f"mean {float(got.mean()):.3f} | {smi}")
+        records.append({"phase": f"C18 {case}", "ms": ms, "plain_ms": plain_ms,
+                        "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "cross_kind_pairs": n_cross})
+    return records
+
+
+def _check_multi1m(api, driver, sk, disc, sample, policy, dev, smi) -> dict:
+    """BASELINE config 5 at full size through ``api.MultiMatcher``: box
+    models A and B (2400 points each) planted in 1M points of fog patches,
+    raycast-verified from the config's five origins with
+    ``min_cast_score=None``; first call and warm, every launch count zeroed
+    before the first.  Each model's first match within 1 mm / 0.5 deg, the
+    fog switch fired and B2 (not B1, B3, B4) launched for both, every cast
+    score in (0, 1], and on each model's first match the pruned cast from the
+    first origin equal to the brute cast bit for bit.  Prints each model's
+    search and raycast seconds, the cone cull's survivors per origin, and
+    the peak memory.  Returns the first call's launches by kernel."""
+    import torch
+
+    from triplet_match_tpu_torch.core.cloud import PointCloud
+    from triplet_match_tpu_torch.io.synthetic import (
+        BASELINE_ORIGINS,
+        baseline_match_arrays,
+        sym_delta,
+    )
+    from triplet_match_tpu_torch.verify.raycast import cast_visibility
+
+    t0 = time.perf_counter()
+    model_arrs, scene_arrs, t_gts = baseline_match_arrays(1_000_000 - 4800, two_models=True)
+    library = [api.Model(PointCloud.from_arrays(*a, device=dev), disc, policy).init(sample)
+               for a in model_arrs]
+    scene = PointCloud.from_arrays(*scene_arrs, device=dev)
+    mm = api.MultiMatcher(library, policy=policy, raycast_origins=BASELINE_ORIGINS,
+                          min_cast_score=None)
+    torch.cuda.synchronize()
+    _log(f"[multi1m] two box models compiled and the {scene.capacity}-point scene built in "
+         f"{time.perf_counter() - t0:.3f} s (serving bucket {mm.bucket_capacity(scene.capacity)}) "
+         f"| {smi}")
+    kw = dict(dist_thres=3.0, model_match_factor=0.5, sample_params=sample,
+              max_icp_iterations=10, seed=5)
+    calls = []
+    for call in ("first", "warm"):
+        for c in sk.LAUNCH_COUNTERS.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = mm.match(scene, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {b: c.launches for b, c in sk.LAUNCH_COUNTERS.items()}
+        stats = [dict(st) for st in driver.LAST_MULTI_SEARCH_STATS]
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        calls.append(launches)
+        k = len(BASELINE_ORIGINS)
+        for i, (matches, st, t_gt) in enumerate(zip(results, stats, t_gts)):
+            model = chr(65 + i)
+            if not matches:
+                raise AssertionError(f"[multi1m] model {model} found nothing (stats {st})")
+            dt, dr = sym_delta(matches[0].transform, t_gt)
+            surv = st["cast_survivors"]
+            _log(f"[multi1m] {call} call, model {model}: {len(matches)} matches, first "
+                 f"{dt * 1000:.4f} mm / {dr:.4f} deg, cast scores "
+                 f"{[round(m.cast_score, 5) for m in matches]} | search {st['search_s']:.3f} s, "
+                 f"raycast {st['raycast_s']:.3f} s, cone survivors per origin "
+                 f"{[surv[j:j + k] for j in range(0, len(surv), k)]} | fog "
+                 f"{st['fine_rescore_full']} (q95 {st.get('ball_population_q95')}), Hg "
+                 f"{st['num_second_samples_effective']} x {policy.query_cap}, rounds "
+                 f"{st['rounds']}, join overflow {st['join_overflow_max']} | {smi}")
+            if not (dt < 1e-3 and dr < 0.5):
+                raise AssertionError(f"[multi1m] model {model}: {dt * 1000:.4f} mm / {dr:.4f} "
+                                     "deg beyond 1 mm / 0.5 deg")
+            if not all(0.0 < m.cast_score <= 1.0 for m in matches):
+                raise AssertionError(f"[multi1m] model {model}: a cast score outside (0, 1]")
+            if not st["fine_rescore_full"]:
+                raise AssertionError(f"[multi1m] model {model}: the fog switch did not fire")
+            if st["exact_kernel_launches"] <= 0 or any(
+                    st[key] for key in ("coarse_kernel_launches", "full_kernel_launches",
+                                        "coarse_linear_kernel_launches")):
+                raise AssertionError(f"[multi1m] model {model} did not rank through B2 alone: "
+                                     f"{st}")
+        if launches["B2"] <= 0 or any(launches[b] for b in ("B1", "B3", "B4")):
+            raise AssertionError(f"[multi1m] launches {launches}: B2 alone expected")
+        _log(f"[multi1m] {call} call: MultiMatcher.match {secs:.3f} s | launches {launches} | "
+             f"peak {peak:.1f} MiB | statistics {mm.statistics} | {smi}")
+    for i, (model, matches) in enumerate(zip(library, results)):
+        c = model.compiled
+        res = float(c.resolution)
+        args = (BASELINE_ORIGINS[0], c.cloud.xyz, c.cloud.valid,
+                torch.as_tensor(matches[0].transform), scene.xyz, scene.valid, res, 2.0 * res)
+        times = {}
+        for prune in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vis = cast_visibility(*args, prune=prune)
+            torch.cuda.synchronize()
+            times[prune] = (time.perf_counter() - t0, vis)
+        if not torch.equal(times[True][1], times[False][1]):
+            raise AssertionError(f"[multi1m] model {chr(65 + i)}: the pruned cast differs from "
+                                 "the brute one")
+        _log(f"[multi1m] model {chr(65 + i)}, origin 0: pruned cast {times[True][0]:.4f} s = "
+             f"brute cast {times[False][0]:.4f} s bit for bit ({int(times[True][1].sum())} of "
+             f"{int(c.cloud.valid.sum())} points visible) | {smi}")
+    return calls[0]
+
+
+def _check_prim(smi) -> None:
+    """BASELINE configs 1 and 2 at full size (``protocol_torch.primitive_row``):
+    plane detection in 10k points (recall >= 0.99, clutter rate <= 0.01) and
+    cylinder detection in 12k (radius within 1 mm of 0.35 m, recall >= 0.99),
+    first call and warm."""
+    from protocol_torch import primitive_row
+
+    for config in (1, 2):
+        row = primitive_row(config, "cuda")
+        what = (f"plane recall {row['plane_recall']:.5f}, clutter rate {row['clutter_rate']:.5f}"
+                if config == 1 else f"radius {row['radius']:.6f} (error "
+                f"{row['radius_err'] * 1000:.4f} mm), recall {row['recall']:.5f}")
+        _log(f"[prim] config {config} ({row['name']}): {row['points']} points | {what} | detect "
+             f"first {row['seconds']:.4f} s, warm {row['seconds_warm']:.4f} s | {smi}")
+        if not row["found"]:
+            raise AssertionError(f"[prim] config {config} misses its outcome: {what}")
+
+
 def _check_radius(tag, prep, model, policy, gen, smi) -> dict:
     """The chunked ``radius_sample`` against one call whose chunk covers the
     whole row, on the driver's queries and priorities of one round (the
@@ -563,6 +765,7 @@ def main() -> int:
     import dataclasses
     import tempfile
     from pathlib import Path
+    from types import SimpleNamespace
 
     import numpy as np
 
@@ -722,6 +925,20 @@ def main() -> int:
             b3_phases.append(_check_exact("B3", "131k full-mode phase 2", sk, mpack, grp, pr, t2,
                                           False, False, True, smi))
     walls["B1, B4, B3 131k"] = time.perf_counter() - t0
+
+    # --- C18: B1 and B4 at gates above the squared kind offset ----------------------
+    t0 = time.perf_counter()
+    grp = groups[:, :, ::policy.two_phase_fine_stride].contiguous()
+    lo = (hg - keep) // 2
+    pr = rows[:, lo:lo + keep].contiguous()
+    surf_pack = sk.pack_model(SimpleNamespace(cloud=PointCloud.from_arrays(
+        xyz, nrm, np.zeros_like(xyz), device=dev)), coarse_points=policy.coarse_model_points,
+        fine_points=policy.fine_model_points)
+    for case, pack in (("one_kind_block", surf_pack), ("far_poses", mpack)):
+        b1_rec, b4_rec = _check_cross_kind(sk, pack, grp, pr, t2, case, smi)
+        b1_phases.append(b1_rec)
+        b4_phases.append(b4_rec)
+    walls["C18 131k"] = time.perf_counter() - t0
 
     # --- 131k main paths -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -968,6 +1185,14 @@ def main() -> int:
         raise AssertionError("the B2 lattice check ran at other shapes than the search")
     del scene_lat, lat_model
     walls["mainlattice"] = time.perf_counter() - t0
+
+    # --- BASELINE config 5: a two-model library in 1M points, raycast-verified -------
+    t0 = time.perf_counter()
+    launches_multi = _check_multi1m(api, driver, sk, disc, sample, policy, dev, smi)
+    walls["multi1m"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _check_prim(smi)
+    walls["prim"] = time.perf_counter() - t0
     walls["total"] = time.perf_counter() - t_all
     _log(f"[wall] seconds per phase {json.dumps({k: round(v, 3) for k, v in walls.items()})} | "
          f"{smi}")
@@ -975,7 +1200,7 @@ def main() -> int:
     paths = {"main131": launches131, "main131full": launches_full131,
              "main131lin": launches_lin131, "main500": launches500,
              "main500full": launches_full500, "main2m": launches2m,
-             "mainlattice": launches_lat}
+             "mainlattice": launches_lat, "multi1m": launches_multi}
 
     def entry(b, name, source, replaces, path, phases):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

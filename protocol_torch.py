@@ -3,6 +3,7 @@
     python3 protocol_torch.py recall --model box|low-edge|lattice --points N \\
         [--seeds 10] [--settings coarse:8:32:4,exact:8:16:1]
     python3 protocol_torch.py scaling [--sizes 2097152,4194304,6291456,8388608]
+    python3 protocol_torch.py baseline [--configs 1,2,3,4,5,6] [--search-seeds 5]
 
 ``recall`` is ``scripts/recall_study.py``: the model family's compiled
 model, ``--seeds`` touching-fog scenes of ``--points`` points (seeds 0 ...),
@@ -12,8 +13,20 @@ with ``dist_thres=3.0``, ``model_match_factor=0.5``, ``SampleParams(0.3,
 0.95)``, ``max_icp_iterations=10``, ``seed=5``.  ``scaling`` is
 ``scripts/scaling_study.py``: the box model, the recall scenes of seeds 1 and
 2 at each size, ``prepare_scene`` and ``find_all`` timed apart.
+``baseline`` is ``scripts/run_baseline_configs.py`` at the configs' stated
+sizes (no ``--small``): 1 plane detection in 10k points, 2 cylinder
+detection in 12k, 3 one box in 100k points of fog patches, 4 the same in
+500k with 15 ICP iterations, 5 two box models in 1M through
+``find_all_multi`` with raycast verification from five origins
+(``min_cast_score=None``), 6 two instances of one box in 131072.  The
+scenes are ``io.synthetic.baseline_*_arrays`` (the script's, bit for bit),
+searched with the script's settings, ``prepare_scene`` timed apart (config
+5 hands its prep to ``find_all_multi``), then searched once more (warm),
+once for each of ``--search-seeds`` (the script's search seed is 5).  Each
+pose error is taken against the nearest of the box's four symmetric ground
+truths (``sym_axis``: 0 the identity, 1-3 a half turn about x, y, z).
 
-Each setting and each size runs in a process of its own, so that one row's
+Each setting, size and config runs in a process of its own, so that one row's
 out-of-memory error cannot hide another's result; the kernels are built
 before any of them starts.  Each row is one JSON line: found / total (seeds
 whose first match lies within 1 mm / 0.5 deg; ``matched``: seeds with any
@@ -23,7 +36,12 @@ the ranking kernels' launches, the search seconds of the first call in the
 process and of the later ones, ``torch.cuda.max_memory_allocated`` of each
 search (reset before it), the chunks of each ``radius_sample`` call, the
 reference row it is held to (``evidence_r5/``) and the card's
-``nvidia-smi`` name and power limit.  A row whose process fails prints
+``nvidia-smi`` name and power limit.  A baseline row carries the same
+search record, its outcome (``found``: the acceptance condition of the
+config) and its reference row (``evidence_r4/configs.jsonl``,
+``evidence_r5/config4_r5.jsonl`` / ``config5_r5.jsonl``); config 5 prints
+one row per model, plus one stats row per model with ``raycast_s`` and the
+cone cull's survivors per origin.  A row whose process fails prints
 ``{"FAILED": <exit code>}``.
 """
 
@@ -211,6 +229,214 @@ def scaling_one(n_pts: int) -> None:
         "card": smi}), flush=True)
 
 
+BASELINE_REFERENCE = {1: ("evidence_r4/configs.jsonl", "1_plane_10k"),
+                      2: ("evidence_r4/configs.jsonl", "2_cylinder"),
+                      3: ("evidence_r4/configs.jsonl", "3_rigid_100k"),
+                      4: ("evidence_r5/config4_r5.jsonl", "4_icp_500k"),
+                      5: ("evidence_r5/config5_r5.jsonl", "5_raycast_1m"),
+                      6: ("evidence_r4/configs.jsonl", "6_two_instances_131k")}
+
+
+def _ref_row(config: int, name: str) -> dict | None:
+    return _reference(BASELINE_REFERENCE[config][0], lambda r: r.get("config") == name)
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _emit(row: dict) -> None:
+    print(json.dumps(row), flush=True)
+
+
+def primitive_row(config: int, dev) -> dict:
+    """BASELINE config 1 (plane in 10k points) or 2 (cylinder in 12k) on
+    ``dev``: detection with the script's hypothesis counts and thresholds
+    (the draws come from a torch generator, not the script's threefry key),
+    first call and warm; the outcome against the config's acceptance
+    condition (``found``: plane recall >= 0.99 and clutter rate <= 0.01;
+    radius within 1 mm of 0.35 m and recall >= 0.99)."""
+    import torch
+
+    from triplet_match_tpu_torch.core.cloud import PointCloud
+    from triplet_match_tpu_torch.io.synthetic import baseline_cylinder_arrays, baseline_plane_arrays
+    from triplet_match_tpu_torch.primitives.detect import detect_cylinder, detect_plane
+
+    xyz, nrm, n_true = baseline_plane_arrays() if config == 1 else baseline_cylinder_arrays()
+    cloud = PointCloud.from_arrays(xyz, nrm, device=dev)
+
+    def run():
+        gen = torch.Generator().manual_seed(config - 1)
+        if config == 1:
+            return detect_plane(cloud, generator=gen, num_hypotheses=256, threshold=0.01)
+        return detect_cylinder(cloud, generator=gen, num_hypotheses=512, threshold=0.015)
+
+    torch.cuda.reset_peak_memory_stats()
+    det, secs = _timed(run)
+    _, warm = _timed(run)
+    inl = det.inliers.cpu().numpy()
+    row = {"protocol": "baseline", "config": config, "points": int(cloud.capacity),
+           "seconds": secs, "seconds_warm": warm,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+    if config == 1:
+        recall, clutter = float(inl[:n_true].mean()), float(inl[n_true:].mean())
+        row.update(name="1_plane_10k", plane_recall=recall, clutter_rate=clutter,
+                   found=recall >= 0.99 and clutter <= 0.01)
+    else:
+        radius = float(det.state.radius)
+        recall = float(inl[:n_true].mean())
+        row.update(name="2_cylinder", radius=radius, radius_err=abs(radius - 0.35),
+                   recall=recall, found=abs(radius - 0.35) <= 1e-3 and recall >= 0.99)
+    return row
+
+
+def baseline_primitive(config: int) -> None:
+    """BASELINE config 1 or 2 on the card, one JSON line (``primitive_row``)."""
+    dev, smi, *_ = _setup()
+    row = primitive_row(config, dev)
+    _emit({**row, "reference": _ref_row(config, row["name"]), "card": smi})
+
+
+def _within(match, t_gt) -> tuple[float, float, int]:
+    """(mm, degrees, k) against the nearest of the box's symmetric ground
+    truths (k = 0: the identity; 1-3: pi about x, y, z)."""
+    from triplet_match_tpu_torch.io.synthetic import sym_pose_error
+
+    dt, dr, k = sym_pose_error(match.transform, t_gt)
+    return dt * 1000.0, dr, k
+
+
+def baseline_match(config: int, search_seeds=(5,)) -> None:
+    """BASELINE config 3, 4, 5 or 6: compile and prepare once, then for each
+    search seed (the script's is 5) search first and warm on the card, each
+    timed; one row per seed, the matches against the config's acceptance
+    condition."""
+    dev, smi, disc, sample, policy = _setup()
+    from triplet_match_tpu_torch.core.cloud import PointCloud
+    from triplet_match_tpu_torch.core.transforms import strict_fp32
+    from triplet_match_tpu_torch.io.synthetic import (
+        baseline_match_arrays,
+        baseline_two_instances_arrays,
+    )
+    from triplet_match_tpu_torch.search import driver
+
+    if config == 6:
+        model_arrs, scene_arrs, t_gts = baseline_two_instances_arrays(131072)
+        model_arrs, name = [model_arrs], "6_two_instances_131k"
+    else:
+        n_clutter = {3: 100_000 - 2400, 4: 500_000 - 2400, 5: 1_000_000 - 4800}[config]
+        model_arrs, scene_arrs, t_gts = baseline_match_arrays(n_clutter, two_models=config == 5)
+        name = {3: "3_rigid_100k", 4: "4_icp_500k", 5: "5_raycast_1m"}[config]
+    models, compile_s = [], 0.0
+    for arrs in model_arrs:
+        m, secs = _compile(arrs, disc, sample, policy, dev)
+        models.append(m)
+        compile_s += secs
+    scene = PointCloud.from_arrays(*scene_arrs, device=dev)
+
+    def prepare():
+        with strict_fp32():
+            return driver.prepare_scene(scene, policy)
+
+    prep, prepare_s = _timed(prepare)
+    kw = dict(sample_params=sample, discretization=disc, policy=policy, prep=prep,
+              max_icp_iterations=15 if config == 4 else 10, dist_thres=3.0,
+              model_match_factor=0.5)
+    for seed in search_seeds:
+        _baseline_rows(config, name, models, scene, t_gts, compile_s, prepare_s,
+                       {**kw, "seed": seed}, smi)
+
+
+def _baseline_rows(config, name, models, scene, t_gts, compile_s, prepare_s, kw, smi) -> None:
+    """One search seed of a BASELINE match config: the search first and warm,
+    then its rows."""
+    import torch
+
+    from triplet_match_tpu_torch.io.synthetic import BASELINE_ORIGINS
+    from triplet_match_tpu_torch.search import driver, score_kernel as sk
+
+    if config == 5:
+        def search():
+            return driver.find_all_multi(models, scene, raycast_origins=BASELINE_ORIGINS,
+                                         min_cast_score=None, **kw)
+    else:
+        def search():
+            return [driver.find_all(models[0], scene, **kw)]
+
+    runs = []
+    for _ in range(2):  # first call with this seed, then warm
+        for c in sk.LAUNCH_COUNTERS.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        results, secs = _timed(search)
+        per_model = ([dict(s) for s in driver.LAST_MULTI_SEARCH_STATS] if config == 5
+                     else [dict(driver.LAST_SEARCH_STATS)])
+        runs.append((results, secs, torch.cuda.max_memory_allocated() / 2**20,
+                     {b: c.launches for b, c in sk.LAUNCH_COUNTERS.items()}, per_model))
+    (results, secs, peak, launches, per_model), (_, warm, peak_warm, _, _) = runs
+    common = {"protocol": "baseline", "config": config, "search_seed": kw["seed"],
+              "scene_points": int(scene.capacity), "compile_s": compile_s,
+              "prepare_s": prepare_s, "search_s": secs, "search_s_warm": warm,
+              "peak_mib": peak, "peak_mib_warm": peak_warm, "launches": launches}
+    if config == 5:
+        for i, st in enumerate(per_model):
+            surv = st.get("cast_survivors", [])
+            k = len(BASELINE_ORIGINS)
+            _emit({"protocol": "baseline", "config": 5, "search_seed": kw["seed"],
+                   "name": f"{name}_stats{chr(65 + i)}",
+                   **{key: st.get(key) for key in (
+                       "search_s", "raycast_s", "rounds", "phases", "finalists", "accepted",
+                       "hypotheses_scored", "num_second_samples_effective",
+                       "fine_rescore_full", "rank_edges_only", "join_subset_capacity",
+                       "join_overflow_max", "round_ms_avg", "ball_population_q95",
+                       "coarse_kernel_launches", "exact_kernel_launches",
+                       "full_kernel_launches", "coarse_linear_kernel_launches")},
+                   "survivors_per_origin": [surv[j:j + k] for j in range(0, len(surv), k)],
+                   "reference": _ref_row(5, f"{name}_stats{chr(65 + i)}"), "card": smi})
+        for i, (matches, st) in enumerate(zip(results, per_model)):
+            row = {**common, "name": f"{name}_model{chr(65 + i)}", "matches": len(matches),
+                   "fog": bool(st.get("fine_rescore_full")), "cast_score": None,
+                   "translation_mm": None, "rotation_deg": None, "sym_axis": None}
+            if matches:
+                (row["translation_mm"], row["rotation_deg"],
+                 row["sym_axis"]) = _within(matches[0], t_gts[i])
+                row["cast_score"] = matches[0].cast_score
+            row["found"] = (len(matches) == 1 and row["translation_mm"] < 1.0
+                            and row["rotation_deg"] < 0.5)
+            _emit({**row, "reference": _ref_row(5, row["name"]), "card": smi})
+        return
+    matches, st = results[0], per_model[0]
+    row = {**common, "name": name, "matches": len(matches),
+           "fog": bool(st.get("fine_rescore_full")),
+           "ball_population_q95": st.get("ball_population_q95"),
+           "num_second_samples_effective": st.get("num_second_samples_effective"),
+           "join_overflow_max": st.get("join_overflow_max"), "rounds": st.get("rounds")}
+    if config == 6:  # each match to its nearest unclaimed instance, as the script pairs them
+        used, deltas = set(), []
+        for m in matches:
+            cands = [(_within(m, tg), i) for i, tg in enumerate(t_gts) if i not in used]
+            if not cands:
+                break
+            (dt, dr, k), i = min(cands, key=lambda c: c[0][0])
+            used.add(i)
+            deltas.append((dt, dr, k))
+        row.update(per_instance=deltas, corrs=[len(m.scene_corrs) for m in matches],
+                   worst_translation_mm=max((d[0] for d in deltas), default=None),
+                   worst_rotation_deg=max((d[1] for d in deltas), default=None),
+                   found=len(matches) == 2 and all(d[0] < 1.0 and d[1] < 0.5 for d in deltas))
+    else:
+        dt, dr, k = _within(matches[0], t_gts[0]) if matches else (None, None, None)
+        row.update(translation_mm=dt, rotation_deg=dr, sym_axis=k,
+                   found=len(matches) == 1 and dt < 1.0 and dr < 0.5)
+    _emit({**row, "reference": _ref_row(config, name), "card": smi})
+
+
 def _isolated(argv: list[str], failed: dict) -> None:
     res = subprocess.run([sys.executable, str(Path(__file__).resolve()), *argv])
     if res.returncode != 0:
@@ -229,6 +455,11 @@ def main() -> int:
     sc = sub.add_parser("scaling")
     sc.add_argument("--sizes", default="2097152,4194304,6291456,8388608")
     sc.add_argument("--one", type=int, default=None, help="run one size in this process")
+    bl = sub.add_parser("baseline")
+    bl.add_argument("--configs", default="1,2,3,4,5,6")
+    bl.add_argument("--one", type=int, default=None, help="run one config in this process")
+    bl.add_argument("--search-seeds", default="5",
+                    help="the searches' seeds of configs 3-6, one row each (the script's: 5)")
     args = ap.parse_args()
 
     if args.protocol == "recall" and args.no_isolate:
@@ -236,6 +467,12 @@ def main() -> int:
         return 0
     if args.protocol == "scaling" and args.one is not None:
         scaling_one(args.one)
+        return 0
+    if args.protocol == "baseline" and args.one is not None:
+        if args.one in (1, 2):
+            baseline_primitive(args.one)
+        else:
+            baseline_match(args.one, [int(x) for x in args.search_seeds.split(",")])
         return 0
     _setup()
     from triplet_match_tpu_torch.kernels.build import build_all
@@ -247,10 +484,14 @@ def main() -> int:
                        str(args.points), "--seeds", str(args.seeds), "--settings", s.strip()],
                       {"protocol": "recall", "model": args.model, "points": args.points,
                        "setting": s.strip()})
-    else:
+    elif args.protocol == "scaling":
         for s in args.sizes.split(","):
             _isolated(["scaling", "--one", s.strip()],
                       {"protocol": "scaling", "scene_points": int(s)})
+    else:
+        for c in args.configs.split(","):
+            _isolated(["baseline", "--one", c.strip(), "--search-seeds", args.search_seeds],
+                      {"protocol": "baseline", "config": int(c)})
     return 0
 
 

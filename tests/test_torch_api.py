@@ -126,8 +126,8 @@ def test_matcher_finds_the_planted_pose(models):
 def test_unported_serving_surfaces_raise(models):
     _, _, path = models
     tmodel = api.Model.load(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        api.MultiMatcher([tmodel])
+    with pytest.raises(NotImplementedError, match="A12"):
+        api.MultiMatcher([tmodel], mesh=object())
     with pytest.raises(NotImplementedError, match="A12"):
         api.Matcher(tmodel, mesh=object())
     with pytest.raises(NotImplementedError, match="A12"):

@@ -1,11 +1,12 @@
 """What the coarse kernels (TPU kernels B1 and B4) rely on to sweep less.
 
 The Hopper kernels sweep, for each eligible point, only the real
-representatives of the point's own kind, and skip ineligible points.  This
-file pins on the CPU that such a sweep scores bit for bit what the plain
-all-representative versions (``score_groups_coarse_plain``,
-``score_groups_coarse_linear_plain``) score, and that ``pack_model`` records
-the representative counts the kernels take.
+representatives of the point's own kind (below a gate of half the squared
+kind offset), and skip ineligible points.  This file pins on the CPU that
+such a sweep scores bit for bit what the plain all-representative versions
+(``score_groups_coarse_plain``, ``score_groups_coarse_linear_plain``)
+score, and that ``pack_model`` records the representative counts the
+kernels take.
 """
 
 from types import SimpleNamespace
@@ -100,11 +101,15 @@ def test_own_kind_sweep_scores_as_the_plain_versions(block, strict_primary, edge
 @pytest.mark.parametrize("strict_gate", [False, True])
 def test_coarse_launch_rejects_a_gate_beyond_the_kind_offset(launch, strict_gate):
     """The own-kind sweep is exact only while a cross-kind pair (kind_off^2
-    apart) can never be under a gate: the launchers refuse a larger gate
-    before they look at the tensors."""
+    apart) can never be under a gate.  The launchers used to refuse a larger
+    gate; since the kernels' cross-kind sweep (ROADMAP C18) they take it and
+    set ``cross`` (``_cross_kind``), so such a call is rejected only for what
+    any call is rejected for: here, tensors off the card."""
     off = 4.0
     t2, t2s = (1e-4, off * off) if strict_gate else (off * off + 1.0, 1e-4)
+    assert sk._cross_kind(t2, t2s, off)
+    assert not sk._cross_kind(1e-4, 0.49 * off * off, off)
     z = torch.zeros(1, 8, 4)
-    with pytest.raises(ValueError, match="kind offset"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         launch(z, torch.zeros(1, 2, 16), torch.zeros(8, 4), 0, 4, (0.0, 0.0, 0.0), t2, off, t2s,
                1.0, 0.0)

@@ -9,6 +9,8 @@ K float32 ulps.  Against B1 (another operand build) the near-gate band is
 tests/test_torch_kernels_cuda.py.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -20,9 +22,11 @@ from triplet_match_tpu.config import DiscretizationParams, SampleParams, SearchP
 from triplet_match_tpu.core.cloud import PointCloud as JCloud
 from triplet_match_tpu.index.model import compile_model
 from triplet_match_tpu.index.serialize import _CLOUD_FIELDS, _MODEL_FIELDS
-from triplet_match_tpu.io.synthetic import embed_in_scene, make_box_model
+from triplet_match_tpu.io.synthetic import embed_in_scene, make_box_model, rotation_matrix
 from triplet_match_tpu.search import score_pallas as jsp
 from triplet_match_tpu.search.driver import prepare_scene
+
+from triplet_match_tpu_torch.core.cloud import PointCloud
 
 from triplet_match_tpu_torch.index.model import compiled_model_from_numpy
 from triplet_match_tpu_torch.search import score_kernel as tsk
@@ -124,3 +128,61 @@ def test_two_phase_coarse_linear_matches_jax(setup):
     np.testing.assert_array_equal(ct.numpy(), cj)
     k = setup["groups"].shape[2] // 4
     np.testing.assert_allclose(st.numpy(), sj, rtol=0, atol=k * np.spacing(np.float32(k + 1)))
+
+
+@pytest.mark.parametrize("case", ["one_kind_block", "far_poses"])
+@pytest.mark.parametrize("ranker", ["B1", "B4"])
+def test_coarse_plain_counts_cross_kind_hits_as_jax(setup, ranker, case):
+    """Gates above the squared kind offset (ROADMAP C18), where the TPU
+    kernels count a point whose nearest real representative is of the other
+    kind: a block without edge representatives (a model without edge points)
+    against the scene's edge points at the gate off^2 + t2, and poses that
+    carry the groups 100 kind offsets away from the model at the median
+    distance of the pairs whose nearest representative is of the other kind.
+    Both plain versions equal the interpret kernels with no near-gate excuse,
+    and the CUDA launchers set their ``cross`` sweep at such a gate
+    (tests/test_torch_kernels_cuda.py holds the kernels there)."""
+    groups = np.ascontiguousarray(setup["groups"][:, :, ::4])
+    tg = torch.from_numpy(groups)
+    if case == "one_kind_block":
+        xyz, nrm, _ = make_box_model(n_edge=120, n_face=360, size=(1.0, 0.8, 0.6), seed=0)
+        jp = jsp.pack_model(SimpleNamespace(cloud=JCloud.from_arrays(xyz, nrm)),
+                            coarse_points=256, fine_points=512)
+        tp = tsk.pack_model(SimpleNamespace(cloud=PointCloud.from_arrays(xyz, nrm, device="cpu")),
+                            coarse_points=256, fine_points=512)
+        assert tp.n_edge_reps == (0, 0)
+        rows = torch.from_numpy(setup["rows"][:, :16].copy())  # near the true pose
+        shifted = tsk._centre_shifted(tp, rows)
+        t2 = tp.kind_off ** 2 + setup["t2"]
+    else:
+        jp, tp = setup["jpack"], setup["tpack"]
+        g, hg = groups.shape[0], 16
+        rng = np.random.default_rng(5)
+        ts = np.tile(np.eye(4, dtype=np.float32), (g, hg, 1, 1))
+        for i in range(g):
+            for h in range(hg):
+                ts[i, h, :3, :3] = rotation_matrix(rng.normal(size=3), rng.uniform(0, np.pi))
+        d = rng.normal(size=(g, hg, 3))
+        ts[..., :3, 3] = 100.0 * tp.kind_off * d / np.linalg.norm(d, axis=-1, keepdims=True)
+        shifted = tsk.poses_to_rows(torch.from_numpy(ts))
+        rows = shifted.clone()
+        rows[..., 9:12] += tp.center
+    md = tp.md_fine
+    own, best = tsk.kind_minima(tg, shifted, md, tp.kind_off)
+    if case == "far_poses":
+        t2 = float(best[best < own].median())
+    t2c = 1.05 * t2
+    # the data reaches the cross-kind path: pairs that hit only through the other kind
+    assert int(((best <= t2) & (own > t2)).sum()) > 0
+    jfn, tfn = ((jsp.score_groups_coarse, tsk.score_groups_coarse) if ranker == "B1"
+                else (jsp.score_groups_coarse_linear, tsk.score_groups_coarse_linear))
+    ref = jfn(jp, jnp.asarray(groups), jnp.asarray(rows.numpy()), t2c, t2, pose_tile=16,
+              interpret=True, mxu_precision="highest", block="fine")
+    got = tfn(tp, tg, rows, t2c, t2, block="fine")
+    _, excused = tsk.check_coarse_parity(got, torch.from_numpy(np.array(ref)), tg, shifted, md,
+                                         t2c, tp.kind_off, t2, False)
+    assert excused == 0
+    assert float(got.max()) > 0.0
+    assert tsk._cross_kind(t2c, t2, tp.kind_off)
+    assert not tsk._cross_kind(tsk._inflate(setup["t2"], tp.fine_slack), setup["t2"],
+                               tp.kind_off)

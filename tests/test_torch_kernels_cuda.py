@@ -277,6 +277,46 @@ def test_coarse_linear_kernel_matches_plain(card, block, stride, strict_primary,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_kind_block", "far_poses"])
+@pytest.mark.parametrize("ranker", ["B1", "B4"])
+def test_coarse_kernels_sweep_the_other_kind_above_off2(card, ranker, case):
+    """B1 and B4 at gates above the squared kind offset (ROADMAP C18): the
+    launcher sets the kernel's ``cross`` sweep, and the kernel counts the
+    pairs whose nearest real representative is of the other kind as its
+    plain version does (a block without edge representatives at off^2 + t2;
+    poses 100 kind offsets away at the median cross-kind distance)."""
+    dev = card[0]
+    variant = "no_edge_reps" if case == "one_kind_block" else "main"
+    pack, groups, rows, shifted, t2, _ = _coarse_inputs(card, "fine", 4, variant)
+    if case == "far_poses":
+        rng = np.random.default_rng(9)
+        d = torch.from_numpy(rng.normal(size=rows.shape[:2] + (3,))).to(dev)
+        far = (100.0 * pack.kind_off * d / d.norm(dim=-1, keepdim=True)).float()
+        shifted = shifted.clone()
+        shifted[..., 9:12] = far
+        rows = shifted.clone()
+        rows[..., 9:12] += pack.center
+    own, best = sk.kind_minima(groups, shifted, pack.md_fine, pack.kind_off)
+    t2 = (pack.kind_off ** 2 + t2 if case == "one_kind_block"
+          else float(best[best < own].median()))
+    t2c = 1.05 * t2
+    assert int(((best <= t2) & (own > t2)).sum()) > 0
+    md, n_edge, n_reps, args = sk._coarse_inputs(pack, groups, t2c, t2, "fine", False)
+    assert sk._cross_kind(t2c, t2, pack.kind_off)
+    if ranker == "B1":
+        got = sk.score_groups_coarse(pack, groups, rows, t2c, t2, block="fine")
+        ref = sk.score_groups_coarse_plain(groups, shifted, md, *args)
+    else:
+        got = sk.score_groups_coarse_linear(pack, groups, rows, t2c, t2, block="fine")
+        ref = sk.score_groups_coarse_linear_plain(groups, sk.coarse_linear_rows(shifted), md,
+                                                  *args)
+    torch.cuda.synchronize()
+    _, excused = sk.check_coarse_parity(got, ref, groups, shifted, md, t2c, pack.kind_off, t2,
+                                        False)
+    assert excused == 0 and float(got.max()) > 0.0
+
+
+@pytest.mark.cuda
 def test_matcher_on_card_launches_b3_and_b4(card):
     """The object API on the card: full-mode ranking launches B1 and B3, the
     linearised route B4 and not B1, and both find the pose."""

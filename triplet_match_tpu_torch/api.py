@@ -9,13 +9,13 @@ include/scene:36-53):
                                   early_out_factor, sample_params, max_icp)
     inst = s.instantiate(m, matches[0])
 
-``Matcher`` serves a stream of scenes against one model.  Everything runs on
-the device of the model's cloud (the CUDA card unless the caller built it on
-the CPU).  Differences from the reference are the JAX package's: searches
-are deterministic under ``seed``, ``pair_count()`` returns the real count,
-``instantiate`` places every model point by default, and ``statistics`` is
-populated.  ``mesh=`` (ROADMAP A12) and ``MultiMatcher`` (A10) are not
-ported and raise.
+``Matcher`` serves a stream of scenes against one model, ``MultiMatcher``
+against a model library.  Everything runs on the device of the model's
+cloud (the CUDA card unless the caller built it on the CPU).  Differences
+from the reference are the JAX package's: searches are deterministic under
+``seed``, ``pair_count()`` returns the real count, ``instantiate`` places
+every model point by default, and ``statistics`` is populated.  ``mesh=``
+(ROADMAP A12) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -41,8 +41,6 @@ from triplet_match_tpu_torch.index.serialize import load_discretization, load_mo
 from triplet_match_tpu_torch.search import driver
 
 _MESH = driver._MESH
-_MULTI = ("multi-model serving (MultiMatcher, find_all_multi) is not ported yet "
-          "(ROADMAP queue A, A10)")
 
 
 @dataclasses.dataclass
@@ -303,8 +301,76 @@ def _warmup_scene(models: list[Model], capacity: int, dense: bool = False) -> Po
 
 
 class MultiMatcher:
-    """Serving over a model library (the JAX ``MultiMatcher``): not ported
-    yet (ROADMAP queue A, A10); constructing one raises."""
+    """Serving session over a model library: several models, a stream of
+    scenes (BASELINE config 5's deployment shape)::
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_MULTI)
+        mm = MultiMatcher([model_a, model_b], policy=SearchPolicy(...))
+        for cloud in scene_stream:
+            per_model = mm.match(cloud)       # one match list per model
+
+    Each scene is prepared once on the first model's device and shared by
+    every model (``driver.find_all_multi``); a scene point claimed by one
+    model's match is unavailable to the rest.  Capacities are bucketed as in
+    :class:`Matcher`.  With ``raycast_origins`` each match is raycast-verified
+    and ``min_cast_score`` drops the weaker ones.  ``mesh=`` (ROADMAP A12) is
+    not ported and raises.
+    """
+
+    def __init__(self, models: list[Model], policy: SearchPolicy = DEFAULT_POLICY, *,
+                 mesh=None, min_capacity: int = 4096, raycast_origins=None,
+                 min_cast_score: float | None = None):
+        if mesh is not None:
+            raise NotImplementedError(_MESH)
+        if not models:
+            raise ValueError("MultiMatcher needs at least one model")
+        # find_all quantizes its query features under one set of params, which
+        # must be each model's compile-time set or every pair-table lookup misses
+        if any(m._params != models[0]._params for m in models[1:]):
+            raise ValueError("MultiMatcher models must share DiscretizationParams (got "
+                             f"{[m._params for m in models]}); compile them with one params set "
+                             "or serve them from separate Matchers")
+        self._models = list(models)
+        self._policy = policy
+        self._min_capacity = min_capacity
+        self._raycast_origins = raycast_origins
+        self._min_cast_score = min_cast_score
+        self.statistics = Statistics()
+
+    def bucket_capacity(self, n: int) -> int:
+        return _bucket_capacity(n, self._min_capacity)
+
+    def match(self, cloud: PointCloud, **kwargs) -> list[list[driver.Match]]:
+        """Search one scene with every model; one match list per model.
+        Keyword arguments pass through to ``driver.find_all`` (``dist_thres``,
+        ``model_match_factor``, ``seed``, ...).  Per-model statistics stay in
+        ``driver.LAST_MULTI_SEARCH_STATS``; ``statistics`` aggregates them."""
+        cloud = pad_capacity(cloud, self.bucket_capacity(cloud.capacity))
+        with strict_fp32():
+            prep = driver.prepare_scene(cloud.to(self._models[0].device), self._policy)
+        kwargs.setdefault("discretization", self._models[0]._params)
+        results = driver.find_all_multi(
+            [m.compiled for m in self._models], cloud, policy=self._policy, prep=prep,
+            raycast_origins=self._raycast_origins, min_cast_score=self._min_cast_score,
+            **kwargs)
+        per_model = driver.LAST_MULTI_SEARCH_STATS
+        self.statistics = Statistics(
+            rejection_rate=(sum(s.get("rejection_rate", 0.0) for s in per_model)
+                            / max(len(per_model), 1)),
+            rounds=sum(s.get("rounds", 0) for s in per_model),
+            hypotheses_scored=sum(s.get("hypotheses_scored", 0) for s in per_model),
+            matches_accepted=sum(len(r) for r in results))
+        return results
+
+    def warmup(self, scene_sizes, dense: bool = True, **kwargs) -> list[int]:
+        """Run the production search once per bucket covering ``scene_sizes``
+        before live traffic, as :meth:`Matcher.warmup` does, with one instance
+        of every library model planted in each warmup scene.  The JAX package
+        also grows its round-executable cache here; the port compiles no
+        per-shape programs, so it has no such cache.  Returns the bucket
+        capacities warmed."""
+        caps = sorted({self.bucket_capacity(int(s)) for s in scene_sizes})
+        for cap in caps:
+            self.match(_warmup_scene(self._models, cap), **kwargs)
+            if dense:
+                self.match(_warmup_scene(self._models, cap, dense=True), **kwargs)
+        return caps

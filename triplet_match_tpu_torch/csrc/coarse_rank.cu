@@ -12,15 +12,16 @@
 // Launch on `stream`.  groups [g, 8, k], poses [g, hg, 16] (poses_to_rows
 // layout, not centre-shifted), block [8, ld] of which the first n_reps columns
 // are real representatives, edge ones first (n_edge of them), out [g, hg]; all
-// float32, contiguous, on the device; (cx, cy, cz) the model centre.  Returns
-// cudaGetLastError() after the launch.
+// float32, contiguous, on the device; (cx, cy, cz) the model centre.  A
+// non-zero `cross` also sweeps the other kind's representatives (for gates at
+// or above off^2).  Returns cudaGetLastError() after the launch.
 extern "C" cudaError_t coarse_rank_launch(const void* groups, const void* poses,
                                           const void* block, void* out, int g, int hg, int k,
                                           int ld, int n_edge, int n_reps, float cx, float cy,
                                           float cz, float t2, float off, float t2s, float w_inf,
-                                          float w_str, void* stream) {
+                                          float w_str, int cross, void* stream) {
   return coarse_rank::launch<false>(groups, poses, block, out, g, hg, k, ld, n_edge, n_reps, cx,
-                                    cy, cz, t2, off, t2s, w_inf, w_str, stream);
+                                    cy, cz, t2, off, t2s, w_inf, w_str, cross, stream);
 }
 
 extern "C" const char* coarse_rank_error_string(int err) {

@@ -39,16 +39,21 @@
 //
 // What each point sweeps: only the real representatives of its own kind (edge
 // points [0, n_edge), surface points [n_edge, n_reps)), and only eligible points
-// are swept at all.  This is exact:
+// are swept at all.  This is exact while both gates lie below kind_off^2:
 //   - a cross-kind pair sits kind_off^2 apart in the 4th coordinate, and
 //     kind_off is a power of two at least 4x the model's extent
-//     (score_kernel.pack_model), so a cross-kind distance is far above any gate.
+//     (score_kernel.pack_model), so a cross-kind distance is above such a gate.
 //     If a point's global minimum is of its own kind, the own-kind minimum is
 //     the same value bit for bit; otherwise both lie above the gates;
+//   - with `cross` set (the launcher sets it when the larger gate reaches
+//     kind_off^2) each point's sweep goes on over the other kind's real
+//     representatives, and points of a kind without representatives of its own
+//     are staged too, so the minimum is the one over every real representative,
+//     as the TPU kernel's; the main path's gates never set it;
 //   - a padded representative carries |p4|^2 = 2e12 and never hits;
 //   - an ineligible point carries +1e12 on |tp4|^2 and never hits, so it adds 0;
-//   - a point of a kind with no representative has an infinite own-kind
-//     minimum and never hits; such points are not staged.
+//   - without `cross`, a point of a kind with no representative has an
+//     infinite own-kind minimum and never hits; such points are not staged.
 //
 // Why not tensor cores: the distance is an 8-channel product, which the TPU ran
 // on its MXU with a bf16 hi/lo split.  TF32 or a 3 x bf16 split on Hopper would
@@ -127,12 +132,35 @@ struct Layout {
   }
 };
 
+// One representative m against the thread's register tile: the 8-channel
+// distance product in the TPU kernel's order, folded into the running minima.
+__device__ __forceinline__ void sweep_rep(const float4* s_rep, int m,
+                                          const float (&a0)[kTP][kTQ],
+                                          const float (&a1)[kTP][kTQ],
+                                          const float (&a2)[kTP][kTQ], const float (&a3)[kTQ],
+                                          float (&dmin)[kTP][kTQ]) {
+  const float4 b = s_rep[2 * m];
+  const float2 hl = *reinterpret_cast<const float2*>(s_rep + 2 * m + 1);
+#pragma unroll
+  for (int i = 0; i < kTP; ++i)
+#pragma unroll
+    for (int j = 0; j < kTQ; ++j) {
+      float d = __fmul_rn(a0[i][j], b.x);
+      d = __fmaf_rn(a1[i][j], b.y, d);
+      d = __fmaf_rn(a2[i][j], b.z, d);
+      d = __fmaf_rn(a3[j], b.w, d);
+      d = __fadd_rn(d, hl.x);
+      d = __fadd_rn(d, hl.y);
+      dmin[i][j] = fminf(dmin[i][j], d);
+    }
+}
+
 template <bool kLinear>
 __global__ void __launch_bounds__(kThreads, 4)
 rank_kernel(const float* __restrict__ groups, const float* __restrict__ poses,
             const float* __restrict__ block, float* __restrict__ out, int hg, int k, int ld,
             int n_edge, int n_reps, float cx, float cy, float cz, float t2, float off, float t2s,
-            float w_inf, float w_str, int npt) {
+            float w_inf, float w_str, int npt, int cross) {
   extern __shared__ float4 smem[];
   const int pb = npt * kTP;
   const Layout lay(n_reps, pb, k);
@@ -189,7 +217,7 @@ rank_kernel(const float* __restrict__ groups, const float* __restrict__ poses,
     int base = 0, ne = 0;
 #pragma unroll 1
     for (int kind = 1; kind >= 0; --kind) {
-      const bool has_reps = kind ? n_edge > 0 : n_reps > n_edge;
+      const bool has_reps = cross ? n_reps > 0 : kind ? n_edge > 0 : n_reps > n_edge;
       const int start = base;
       for (int c = 0; has_reps && c < k; c += 32) {
         const int i = c + lane;
@@ -239,6 +267,8 @@ rank_kernel(const float* __restrict__ groups, const float* __restrict__ poses,
   for (int tile = tid / npt; tile < tiles; tile += npl) {
     const bool edge = tile < tiles_e;
     const int r0 = edge ? 0 : n_edge, r1 = edge ? n_edge : n_reps;
+    // the other kind's representatives, swept after the own kind's with `cross`
+    const int x0 = cross ? (edge ? n_edge : 0) : 0, x1 = cross ? (edge ? n_reps : n_edge) : 0;
     const int q0 = tile * kTQ;
     const int n_real = edge ? ne - q0 : ns - (q0 - tiles_e * kTQ);
     float a0[kTP][kTQ], a1[kTP][kTQ], a2[kTP][kTQ], tp2[kTP][kTQ], a3[kTQ];
@@ -291,22 +321,9 @@ rank_kernel(const float* __restrict__ groups, const float* __restrict__ poses,
 #pragma unroll
       for (int j = 0; j < kTQ; ++j) dmin[i][j] = __int_as_float(0x7f800000);  // +inf
 #pragma unroll 2
-    for (int m = r0; m < r1; ++m) {
-      const float4 b = s_rep[2 * m];
-      const float2 hl = *reinterpret_cast<const float2*>(s_rep + 2 * m + 1);
-#pragma unroll
-      for (int i = 0; i < kTP; ++i)
-#pragma unroll
-        for (int j = 0; j < kTQ; ++j) {
-          float d = __fmul_rn(a0[i][j], b.x);
-          d = __fmaf_rn(a1[i][j], b.y, d);
-          d = __fmaf_rn(a2[i][j], b.z, d);
-          d = __fmaf_rn(a3[j], b.w, d);
-          d = __fadd_rn(d, hl.x);
-          d = __fadd_rn(d, hl.y);
-          dmin[i][j] = fminf(dmin[i][j], d);
-        }
-    }
+    for (int m = r0; m < r1; ++m) sweep_rep(s_rep, m, a0, a1, a2, a3, dmin);
+#pragma unroll 1
+    for (int m = x0; m < x1; ++m) sweep_rep(s_rep, m, a0, a1, a2, a3, dmin);
 #pragma unroll
     for (int j = 0; j < kTQ; ++j) {
       if (j >= n_real) break;
@@ -355,7 +372,8 @@ inline int pose_tiles(int g, int hg, int sms) {
 template <bool kLinear>
 cudaError_t launch(const void* groups, const void* poses, const void* block, void* out, int g,
                    int hg, int k, int ld, int n_edge, int n_reps, float cx, float cy, float cz,
-                   float t2, float off, float t2s, float w_inf, float w_str, void* stream) {
+                   float t2, float off, float t2s, float w_inf, float w_str, int cross,
+                   void* stream) {
   if (g <= 0 || hg <= 0 || k <= 0 || n_reps < 0 || n_reps > ld || n_edge < 0 || n_edge > n_reps)
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
@@ -373,7 +391,7 @@ cudaError_t launch(const void* groups, const void* poses, const void* block, voi
   const dim3 grid(g, (hg + pb - 1) / pb);
   rank_kernel<kLinear><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)groups, (const float*)poses, (const float*)block, (float*)out, hg, k, ld,
-      n_edge, n_reps, cx, cy, cz, t2, off, t2s, w_inf, w_str, npt);
+      n_edge, n_reps, cx, cy, cz, t2, off, t2s, w_inf, w_str, npt, cross);
   return cudaGetLastError();
 }
 

@@ -3,9 +3,10 @@
 jax-free copies of the generators in ``triplet_match_tpu.io.synthetic``
 (the same numpy draws, so the same clouds bit for bit), plus the recall
 protocol of ``scripts/recall_study.py``, its model families
-(``model_arrays``) and its touching-fog scene (``recall_scene``), and
-``sym_delta``, the box-symmetry-aware pose error of
-``scripts/run_baseline_configs.py``.
+(``model_arrays``) and its touching-fog scene (``recall_scene``), the
+scenes of the BASELINE configs (``baseline_*_arrays``, from
+``scripts/run_baseline_configs.py``), and ``sym_delta``, that script's
+box-symmetry-aware pose error.
 """
 
 from __future__ import annotations
@@ -95,6 +96,26 @@ def make_plane_patch(n: int = 2000, size=(2.0, 2.0), seed: int = 1, border_edges
             sl = slice(i * nb // 4, (i + 1) * nb // 4)
             xyz[sl, axis] = sgn * size[axis] / 2
             tangent[sl, 1 - axis] = 1.0
+    return xyz, normal, tangent
+
+
+def make_cylinder(n: int = 3000, radius: float = 0.5, height: float = 2.0, seed: int = 2,
+                  rim_edges: bool = True):
+    """Cylinder barrel about z with optional rim edge points (tangent along
+    the rim): the first n // 5 points sit on the two rims."""
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0, 2 * np.pi, n)
+    z = rng.uniform(-height / 2, height / 2, n)
+    xyz = np.stack([radius * np.cos(theta), radius * np.sin(theta), z], 1).astype(np.float32)
+    normal = np.stack([np.cos(theta), np.sin(theta), np.zeros_like(theta)], 1).astype(np.float32)
+    tangent = np.zeros((n, 3), np.float32)
+    if rim_edges:
+        nb = n // 5
+        for i, sgn in enumerate([-1, 1]):
+            sl = slice(i * nb // 2, (i + 1) * nb // 2)
+            xyz[sl, 2] = sgn * height / 2
+            tangent[sl, 0] = -np.sin(theta[sl])
+            tangent[sl, 1] = np.cos(theta[sl])
     return xyz, normal, tangent
 
 
@@ -245,19 +266,109 @@ def recall_scene(n_points: int, seed: int, arrays=None, device="cuda"):
     return PointCloud.from_arrays(s_xyz, s_nrm, s_tan, device=device), t_gt
 
 
-def sym_delta(transform, t_gt) -> tuple[float, float]:
-    """(metres, degrees) pose error against the best box-symmetry-equivalent
-    ground truth: the box's {I, Rx(pi), Ry(pi), Rz(pi)} poses are the same
-    match (pair features cannot tell them apart).  Ranked by
-    dt + 0.01 * deg, as the baseline scripts do."""
-    best = (np.inf, np.inf)
+def baseline_plane_arrays():
+    """BASELINE config 1 (``scripts/run_baseline_configs.py`` config1_plane,
+    bit for bit): a 6000-point 2 x 2 m plane patch under a pose with 2 mm
+    noise, then 4000 uniform clutter points.  Returns (xyz, normal, n_plane)."""
+    rng = np.random.default_rng(42)
+    pxyz, pn, _ = make_plane_patch(n=6000, size=(2.0, 2.0), seed=1)
+    r = rotation_matrix([0.4, 1.0, 0.2], 0.7)
+    pxyz = (pxyz @ r.T + np.array([0.3, -0.5, 1.2], np.float32))
+    pxyz += rng.normal(0, 0.002, pxyz.shape).astype(np.float32)
+    clutter = rng.uniform(-3, 3, (4000, 3)).astype(np.float32)
+    cn = rng.normal(size=(4000, 3)).astype(np.float32)
+    cn /= np.linalg.norm(cn, axis=1, keepdims=True)
+    return np.concatenate([pxyz, clutter]), np.concatenate([pn @ r.T, cn]), 6000
+
+
+def baseline_cylinder_arrays():
+    """BASELINE config 2 (config2_cylinder, bit for bit): an 8000-point
+    cylinder barrel of radius 0.35 m under a pose with 2 mm noise, then 4000
+    uniform clutter points.  Returns (xyz, normal, n_cylinder)."""
+    rng = np.random.default_rng(7)
+    cxyz, cn, _ = make_cylinder(n=8000, radius=0.35, height=1.5, seed=2, rim_edges=False)
+    r = rotation_matrix([1, 0.3, 0.5], 1.3)
+    x = (cxyz @ r.T + np.array([0.5, 1.0, -0.2], np.float32))
+    x += rng.normal(0, 0.002, x.shape).astype(np.float32)
+    clutter = rng.uniform(-3, 3, (4000, 3)).astype(np.float32)
+    kn = rng.normal(size=(4000, 3)).astype(np.float32)
+    kn /= np.linalg.norm(kn, axis=1, keepdims=True)
+    return np.concatenate([x, clutter]), np.concatenate([cn @ r.T, kn]), 8000
+
+
+def _rigid_np(r, t) -> np.ndarray:
+    tg = np.eye(4, dtype=np.float32)
+    tg[:3, :3] = r
+    tg[:3, 3] = t
+    return tg
+
+
+def baseline_match_arrays(n_clutter: int, two_models: bool = False):
+    """BASELINE configs 3-5 (``_match_config``, bit for bit): box model A
+    (1.0 x 0.8 x 0.6 m, 600 edge + 1800 face points) and, with
+    ``two_models``, box model B (1.3 x 0.45 x 0.85 m, seed 50), each planted
+    once with 1 mm noise ahead of ``n_clutter`` points of fog patches.
+    Returns ([(xyz, normal, tangent)] per model, (xyz, normal, tangent) of
+    the scene, [t_gt] per model)."""
+    specs = [((1.0, 0.8, 0.6), 0, np.array([0.0, 0.0, 0.0], np.float32),
+              rotation_matrix([0.3, 1.0, 0.2], 1.1))]
+    if two_models:
+        specs.append(((1.3, 0.45, 0.85), 50, np.array([2.6, 2.4, 0.3], np.float32),
+                      rotation_matrix([0.9, -0.2, 0.4], 2.0)))
+    models = [make_box_model(n_edge=600, n_face=1800, size=size, seed=seed)
+              for size, seed, _, _ in specs]
+    rngc = np.random.default_rng(17)
+    c_xyz, c_nrm = fog_patches(rngc, n_clutter, seed_base=100)
+    parts = [(xyz @ r.T + t + rngc.normal(0, 0.001, xyz.shape).astype(np.float32), nrm @ r.T,
+              tan @ r.T) for (xyz, nrm, tan), (_, _, t, r) in zip(models, specs)]
+    scene = (np.concatenate([p[0] for p in parts] + [c_xyz]),
+             np.concatenate([p[1] for p in parts] + [c_nrm]),
+             np.concatenate([p[2] for p in parts] + [np.zeros_like(c_xyz)]))
+    return models, scene, [_rigid_np(r, t) for _, _, t, r in specs]
+
+
+# config 5's camera origins (run_baseline_configs.py _match_config)
+BASELINE_ORIGINS = np.array([[1.8, 0, 0.6], [-1.8, 0, 0.6], [0, 1.8, 0.6], [0, -1.8, 0.6],
+                             [2.6, 2.4, 2.2]], np.float32)
+
+
+def baseline_two_instances_arrays(n_points: int = 131072):
+    """BASELINE config 6 (config6_two_instances, bit for bit): two instances
+    of box model A with 1 mm noise in fog patches up to ``n_points``.
+    Returns ((xyz, normal, tangent) of the model, of the scene, [t_gt] per
+    instance)."""
+    xyz, nrm, tan = make_box_model(n_edge=600, n_face=1800, size=(1.0, 0.8, 0.6), seed=0)
+    rngc = np.random.default_rng(77)
+    insts = []
+    for off in [(-2.2, -1.5, 0.0), (2.0, 1.8, 0.5)]:
+        r = rotation_matrix(rngc.normal(size=3), rngc.uniform(0, np.pi))
+        insts.append((r, np.array(off, np.float32)))
+    cx, cn = fog_patches(rngc, n_points - 2 * xyz.shape[0], seed_base=900)
+    sx = np.concatenate([xyz @ r.T + t + rngc.normal(0, 0.001, xyz.shape).astype(np.float32)
+                         for r, t in insts] + [cx])
+    sn = np.concatenate([nrm @ r.T for r, _ in insts] + [cn])
+    st = np.concatenate([tan @ r.T for r, _ in insts] + [np.zeros_like(cx)])
+    return (xyz, nrm, tan), (sx, sn, st), [_rigid_np(r, t) for r, t in insts]
+
+
+def sym_pose_error(transform, t_gt) -> tuple[float, float, int]:
+    """(metres, degrees, k) pose error against the best box-symmetry-
+    equivalent ground truth: the box's {I, Rx(pi), Ry(pi), Rz(pi)} poses
+    (k = 0..3) are the same match (pair features cannot tell them apart).
+    Ranked by dt + 0.01 * deg, as the baseline scripts do."""
+    best = (np.inf, np.inf, 0)
     t = torch.as_tensor(np.asarray(transform, np.float32))
-    for axis in [None, [1, 0, 0], [0, 1, 0], [0, 0, 1]]:
+    for k, axis in enumerate([None, [1, 0, 0], [0, 1, 0], [0, 0, 1]]):
         tg = np.asarray(t_gt, np.float32).copy()
         if axis is not None:
             tg[:3, :3] = tg[:3, :3] @ rotation_matrix(axis, np.pi)
         dt, dr = pose_delta(t, torch.as_tensor(tg))
         dt, dr = float(dt), float(np.degrees(float(dr)))
         if dt + 0.01 * dr < best[0] + 0.01 * best[1]:
-            best = (dt, dr)
+            best = (dt, dr, k)
     return best
+
+
+def sym_delta(transform, t_gt) -> tuple[float, float]:
+    """(metres, degrees) of ``sym_pose_error``."""
+    return sym_pose_error(transform, t_gt)[:2]

@@ -83,8 +83,8 @@ def _load(name: str, argtypes: list) -> ctypes.CDLL:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # B1 and B4: groups, poses, block, out, g, hg, k, ld, n_edge, n_reps, the
-# centre (3), t2, off, t2s, w_inf, w_str, stream
-_COARSE_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P]
+# centre (3), t2, off, t2s, w_inf, w_str, cross, stream
+_COARSE_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _I, _P]
 
 
 def load_coarse_rank() -> ctypes.CDLL:

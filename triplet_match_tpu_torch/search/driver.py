@@ -780,6 +780,84 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
         return matches
 
 
+LAST_MULTI_SEARCH_STATS: list = []
+
+
+def find_all_multi(models: list[CompiledModel], scene_cloud: cl.PointCloud, *,
+                   raycast_origins: np.ndarray | None = None, min_cast_score: float | None = None,
+                   point_radius: float | None = None, depth_tolerance: float | None = None,
+                   policy: SearchPolicy = DEFAULT_POLICY, prep: ScenePrep | None = None,
+                   mesh=None, **kwargs) -> list[list[Match]]:
+    """Search several models in one scene (BASELINE config 5), on the first
+    model's device.
+
+    One ``prepare_scene`` (or the caller's ``prep``) serves every model.  The
+    models search in order over a shared consumed-points mask: a scene point
+    claimed by one model's kept match is invalid, and no edge, in the prep
+    the later models search (the multi-model extension of the masking
+    protocol, impl/scene.hpp:87-93); each model's ``find_all`` takes its fog
+    switch on that prep.  With ``raycast_origins`` each match is verified
+    (``verify/raycast.py``) against the unpatched scene, so a point claimed
+    by one model still occludes for the next: ``cast_score`` = matched
+    visible model points / model points visible from any origin, and matches
+    below ``min_cast_score`` are dropped (``None`` keeps every match,
+    annotated).  ``point_radius`` and ``depth_tolerance`` default to the
+    model's resolution and twice it.  Keyword arguments pass to ``find_all``.
+
+    ``LAST_MULTI_SEARCH_STATS`` gets one dict per model: ``find_all``'s
+    ``LAST_SEARCH_STATS`` (the four ``*_kernel_launches`` included) plus
+    ``search_s`` and, with origins, ``raycast_s`` and ``cast_survivors`` (the
+    cone cull's survivors per cast, origin by origin for each match).
+    Raises ``NotImplementedError`` for ``mesh=``.
+    """
+    from triplet_match_tpu_torch.verify.raycast import cast_score_matched, cast_visibility_multi
+
+    if mesh is not None:
+        raise NotImplementedError(_MESH)
+    if prep is None:
+        with strict_fp32():
+            prep = prepare_scene(scene_cloud.to(models[0].cloud.device), policy)
+    consumed: torch.Tensor | None = None
+    all_matches: list[list[Match]] = []
+    LAST_MULTI_SEARCH_STATS.clear()
+    for model in models:
+        prep_m = prep
+        if consumed is not None:
+            prep_m = ScenePrep(cloud=dataclasses.replace(prep.cloud,
+                                                         valid=prep.cloud.valid & ~consumed),
+                               tangent_mask=prep.tangent_mask & ~consumed, n_edge=prep.n_edge)
+        t0 = time.perf_counter()
+        matches = find_all(model, scene_cloud, policy=policy, prep=prep_m, **kwargs)
+        mstats = dict(LAST_SEARCH_STATS)
+        mstats["search_s"] = time.perf_counter() - t0
+        LAST_MULTI_SEARCH_STATS.append(mstats)
+        if raycast_origins is not None:
+            t0 = time.perf_counter()
+            res = float(model.resolution)
+            pr = point_radius if point_radius is not None else res
+            dt = depth_tolerance if depth_tolerance is not None else 2.0 * res
+            cast_stats: dict = {"survivors": []}
+            kept = []
+            for m in matches:
+                vis = cast_visibility_multi(raycast_origins, model.cloud.xyz, model.cloud.valid,
+                                            torch.as_tensor(m.transform), prep.cloud.xyz,
+                                            prep.cloud.valid, pr, dt, stats=cast_stats)
+                m.cast_score = float(cast_score_matched(vis, m.model_corrs))
+                if min_cast_score is None or m.cast_score >= min_cast_score:
+                    kept.append(m)
+            matches = kept
+            mstats["raycast_s"] = time.perf_counter() - t0
+            mstats["cast_survivors"] = cast_stats["survivors"]
+        if consumed is None:
+            consumed = torch.zeros(prep.cloud.capacity, dtype=torch.bool,
+                                   device=prep.cloud.device)
+        for m in matches:
+            consumed[torch.as_tensor(m.scene_corrs, dtype=torch.long,
+                                     device=consumed.device)] = True
+        all_matches.append(matches)
+    return all_matches
+
+
 def instantiate(model: CompiledModel, match: Match, instantiate_all: bool = True) -> np.ndarray:
     """Place the model into the scene under a match transform
     (``scene::instantiate``, impl/scene.hpp:512-531): every valid model point,

@@ -433,16 +433,47 @@ def check_coarse_parity(got: torch.Tensor, ref: torch.Tensor, groups: torch.Tens
     return float(err.max()) if err.numel() else 0.0, excused
 
 
+def kind_minima(groups: torch.Tensor, poses: torch.Tensor, block: torch.Tensor, off: float,
+                group_chunk: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+    """Float64 4-D minima of every eligible (pose, point) pair of a coarse
+    ranking, over the real representatives of the point's own kind and over
+    every real representative (own, best; flat).  A pair hits a gate only
+    through the other kind where best <= gate < own: the checks of the coarse
+    rankers' ``cross`` sweep count such pairs.  ``poses`` are centre-shifted
+    kernel rows."""
+    bk = block.double()
+    bk = bk[:, (bk[4] + bk[5]) < 1e11]
+    rep_edge = bk[3] != 0.0
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=groups.device)
+    own, best = [], []
+    for s in range(0, groups.shape[0], group_chunk):
+        sc = groups[s:s + group_chunk].double()
+        q = poses[s:s + group_chunk].double()
+        p = torch.einsum("ghij,gjk->ghki", q[..., :9].unflatten(-1, (3, 3)), sc[:, :3])
+        d2 = ((p + q[..., None, 9:12])[..., None, :] - bk[:3].T).square().sum(-1)
+        d2 = d2 + (off * sc[:, 3][:, None, :, None] - bk[3]).square()  # [g, Hg, K, reps]
+        same = (sc[:, 3] > 0.5)[:, None, :, None] == rep_edge
+        el = (sc[:, 4] > 0.5)[:, None, :].expand(d2.shape[:3])
+        own.append(torch.where(same, d2, inf).amin(-1)[el])
+        best.append(d2.amin(-1)[el])
+    return torch.cat(own), torch.cat(best)
+
+
+def _cross_kind(thres2, thres2_strict, off) -> bool:
+    """Whether a coarse kernel must also sweep the other kind: a gate at or
+    above half the squared kind offset.  A cross-kind pair lies off^2 apart,
+    and the half keeps the flag clear of the float32 rounding of the
+    expanded distance."""
+    return max(_f32(thres2), _f32(thres2_strict)) >= 0.5 * _f32(off) * _f32(off)
+
+
 def _coarse_kernel_launch(name, load, counter, groups, poses, block, n_edge, n_reps, center,
                          thres2, off, thres2_strict, w_inf, w_str):
     """Launch B1's or B4's kernel (``csrc/<name>.cu``) on the current stream:
     uncentred pose rows, the centre as three floats, and the block's first
-    ``n_reps`` columns, edge representatives first (``n_edge``)."""
-    if max(float(thres2), float(thres2_strict)) >= float(off) * float(off):
-        # a cross-kind pair could then be under a gate, and the kernel sweeps
-        # only each point's own kind (csrc/coarse_rank.cuh)
-        raise ValueError(f"gates {thres2}, {thres2_strict} reach the squared kind offset "
-                         f"{off}^2")
+    ``n_reps`` columns, edge representatives first (``n_edge``).  The kernel
+    sweeps each point's own kind, and with ``_cross_kind`` gates the other
+    kind's too (``cross``, csrc/coarse_rank.cuh)."""
     for arg, t, dims in (("groups", groups, 3), ("poses", poses, 3), ("block", block, 2)):
         if (t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != dims
                 or not t.is_contiguous()):
@@ -468,7 +499,7 @@ def _coarse_kernel_launch(name, load, counter, groups, poses, block, n_edge, n_r
     err = getattr(lib, f"{name}_launch")(
         groups.data_ptr(), poses.data_ptr(), block.data_ptr(), out.data_ptr(), g, hg, k, ld,
         n_edge, n_reps, *(f(c) for c in center), f(thres2), f(off), f(thres2_strict), f(w_inf),
-        f(w_str), stream)
+        f(w_str), int(_cross_kind(thres2, thres2_strict, off)), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{getattr(lib, f'{name}_error_string')(err).decode()}")
