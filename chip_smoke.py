@@ -114,6 +114,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
 17. prim    — BASELINE configs 1 and 2 at full size: plane detection in 10k
               points (recall >= 0.99, clutter rate <= 0.01) and cylinder
               detection in 12k (radius within 1 mm, recall >= 0.99).
+18. mesh11  (after main131lin, and after main500full) — a process group of one
+              NCCL rank in this process and a ("dp", "sp") mesh of shape
+              (1, 1): find_all(mesh=) on the 131k and 500k fixtures with
+              main131's / main500's settings and seed, first and warm.  Against
+              the single-device search: as many matches, the same rounds,
+              accepts and hypotheses, the same kernel launches (B1 at 131k;
+              B2 and not B1 at 500k, the fog switch fired), each pose within
+              1e-3 mm / 1e-3 deg; the claimed points' symmetric difference
+              printed.  The 1-axis make_mesh(1) at 131k likewise.
+19. lut131  (after mesh11 131k) — find_all with scorer="jnp" (the voxel-LUT
+              scorer) on the 131k scene, first and warm: within the contract,
+              none of B1-B4 launched, the fog switch off; seconds beside
+              main131's.
+20. symmetry (after lut131) — detect_self_symmetries of the recall box model:
+              the identity first, 2-4 elements, each other one a half turn
+              about a box axis within 0.1 (tests/test_symmetry.py's rule).
+21. clidist (after cli, on its files) — `python -m torch.distributed.run
+              --standalone --nproc-per-node 2 -m triplet_match_tpu_torch.cli
+              .match ... --sp 2`: two gloo ranks sharing the card, exit 0,
+              rank 0's transform within the contract and within 1e-3 mm of the
+              single-rank CLI run.
+22. mesh12  (after prim) — two gloo ranks sharing the card
+              (parallel.distributed.run_local), a (1, 2) mesh (the scene in
+              halves), at 500k (seed 0) and 2M (seed 1): round 0's first
+              samples and accepts equal the single-device round's, as many
+              matches as main500 / main2m with each pose within the sharded
+              float-reduction tolerance (SHARDED_POSE_TOL: 0.1 mm / 0.01 deg,
+              the CPU parity tests'), identical matches on both ranks, the fog switch
+              fired, B2 launched on both ranks and B1 not, no join overflow;
+              per-rank peak memory and shard size, rank 0's first and warm
+              seconds, and the collectives' share of rank 0's warm 500k call
+              (torch.profiler, the "collective" ranges).
+23. mesh22, mesh212 (after mesh12) — four gloo ranks on the card, (2, 2) and
+              (2, 1, 2) meshes at 500k: identical matches on every rank, the
+              first within 1 mm / 0.5 deg, the fog switch fired, B2 on every
+              rank and B1 not; hypotheses per round against the single
+              device's, per-rank peak memory and rank 0's seconds.
 
 Every main path runs with all four launch counts set to 0 just before its
 first call and read just after it.  Kernel and plain times are CUDA-event
@@ -125,6 +162,7 @@ listing the kernels of the paths and then {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -350,6 +388,7 @@ def _main_path(tag, sk, driver, search, t_gt, smi):
     if not (dt < 1e-3 and dr < 0.5):
         raise AssertionError(f"[{tag}] pose error {dt * 1000:.4f} mm / {dr:.4f} deg beyond "
                              "1 mm / 0.5 deg")
+    stats["search_first_s"], stats["search_warm_s"] = t_first, t_warm
     return stats, launches, matches
 
 
@@ -755,6 +794,256 @@ def _check_jfa(tag, model, smi, rule: bool) -> dict:
     return {"seconds": secs, "equal_share": equal, "excess_max": float(excess.max())}
 
 
+
+def _pose_gap(a, b) -> tuple[float, float]:
+    """(mm, deg) between two model -> scene poses, in float64 with each
+    rotation projected onto SO(3) (arccos of a float32 trace cannot resolve
+    1e-3 deg)."""
+    import numpy as np
+    import torch
+
+    from triplet_match_tpu_torch.core.transforms import pose_delta
+
+    def so3(t):
+        t = torch.as_tensor(np.asarray(t, np.float64)).clone()
+        u, _, vt = torch.linalg.svd(t[:3, :3])
+        t[:3, :3] = u @ vt
+        return t
+
+    dt, dr = pose_delta(so3(a), so3(b))
+    return float(dt) * 1e3, float(np.degrees(float(dr)))
+
+
+def _same_search(tag, matches, ref, stats, ref_stats, launches, ref_launches, smi) -> None:
+    """Fail unless a mesh search repeats the single-device one: as many
+    matches, the same rounds, finalists, accepts and hypotheses, the same
+    kernel launches, each pose within 1e-3 mm / 1e-3 deg; print the claimed
+    points' symmetric difference."""
+    keys = ("rounds", "phases", "finalists", "accepted", "hypotheses_scored", "fine_rescore_full")
+    diff = {k: (stats.get(k), ref_stats.get(k)) for k in keys if stats.get(k) != ref_stats.get(k)}
+    if len(matches) != len(ref) or diff or launches != ref_launches:
+        raise AssertionError(f"[{tag}] {len(matches)} matches against {len(ref)}, stats {diff}, "
+                             f"launches {launches} against {ref_launches}")
+    gaps = [_pose_gap(a.transform, b.transform) for a, b in zip(matches, ref)]
+    sym = [len(set(a.scene_corrs.tolist()) ^ set(b.scene_corrs.tolist()))
+           for a, b in zip(matches, ref)]
+    worst = (max(g[0] for g in gaps), max(g[1] for g in gaps))
+    _log(f"[{tag}] against the single device: {len(matches)} matches, stats and launches equal, "
+         f"pose gap at most {worst[0]:.3g} mm / {worst[1]:.3g} deg, claimed points' symmetric "
+         f"difference {sym} | {smi}")
+    if not (worst[0] < 1e-3 and worst[1] < 1e-3):
+        raise AssertionError(f"[{tag}] pose gap {worst} beyond 1e-3 mm / 1e-3 deg")
+
+
+def _mesh_rank(spec: dict) -> list:
+    """One rank of the multi-rank phases (a spawned process; gloo ranks share
+    the card): for each run of ``spec``, the recall scene, ``find_all`` under
+    the run's mesh twice (first, warm), and on request a profiled warm call
+    (rank 0) and round 0 against the single-device round (rank 0).  Returns
+    every rank's records."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from triplet_match_tpu_torch import config as cfg
+    from triplet_match_tpu_torch.core.cloud import PointCloud
+    from triplet_match_tpu_torch.core.transforms import strict_fp32
+    from triplet_match_tpu_torch.index.model import compile_model
+    from triplet_match_tpu_torch.io.synthetic import recall_box_model, recall_scene
+    from triplet_match_tpu_torch.parallel import mesh as pmesh
+    from triplet_match_tpu_torch.parallel.search2d import (
+        make_mesh_2d,
+        make_mesh_3d,
+        search_round_2d_prep,
+    )
+    from triplet_match_tpu_torch.search import driver, score_kernel as sk
+    from triplet_match_tpu_torch.search.sampling import draw_round
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    disc = cfg.DiscretizationParams()
+    sample = cfg.SampleParams(min_diameter_factor=0.3, max_diameter_factor=0.95)
+    policy = cfg.SearchPolicy()
+    kw = dict(spec["kw"], sample_params=sample, discretization=disc, policy=policy)
+    model = compile_model(PointCloud.from_arrays(*recall_box_model(), device=dev), disc, sample,
+                          policy)
+    out = []
+    for run in spec["runs"]:
+        scene, _ = recall_scene(run["points"], seed=run["seed"], device=dev)
+        shape = tuple(run["shape"])
+        mesh = make_mesh_2d(*shape) if len(shape) == 2 else make_mesh_3d(*shape)
+        for c in sk.LAUNCH_COUNTERS.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        seconds = []
+        for call in range(2):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            matches = driver.find_all(model, scene, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if call == 0:
+                launches = {b: c.launches for b, c in sk.LAUNCH_COUNTERS.items()}
+                stats = dict(driver.LAST_SEARCH_STATS)
+                first = [(m.transform, len(m.scene_corrs)) for m in matches]
+        rec = {"name": run["name"], "rank": rank, "shape": shape, "seconds": seconds,
+               "launches": launches, "stats": stats, "matches": first,
+               "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+               "shard": scene.capacity // shape[-1]}
+        if run.get("profile"):
+            dist.barrier()
+            if rank == 0:
+                with profile(activities=[ProfilerActivity.CPU]) as prof:
+                    t0 = time.perf_counter()
+                    driver.find_all(model, scene, mesh=mesh, **kw)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                coll = [e for e in prof.events() if e.name == pmesh.COLLECTIVE]
+                rec["profile"] = {"wall_ms": wall * 1e3, "collectives": len(coll),
+                                  "collective_ms": sum(e.cpu_time_total for e in coll) / 1e3}
+            else:
+                driver.find_all(model, scene, mesh=mesh, **kw)
+                torch.cuda.synchronize()
+        if run.get("round0"):
+            with strict_fp32():
+                prep = driver.prepare_scene(scene, policy, mesh=mesh)
+                eff, _ = driver.adaptive_policy(prep, model, policy, mesh)
+                fog, fprep = driver.fog_policy(eff, prep, model)
+                mpack = sk.pack_model_cached(model, coarse_points=fog.coarse_model_points,
+                                             fine_points=fog.fine_model_points)
+                gen = torch.Generator().manual_seed(spec["kw"]["seed"])
+                draws = [draw_round(gen, fog.num_first_samples, fog.second_pool, scene.device)]
+                zeros = torch.zeros(fprep.cloud.capacity, dtype=torch.bool, device=scene.device)
+                rkw = dict(discretization=disc, sample_params=sample, policy=fog,
+                           max_icp_iterations=spec["kw"]["max_icp_iterations"])
+                res, _, fp = search_round_2d_prep(
+                    mesh, model, fprep, zeros, zeros.clone(), draws, spec["kw"]["dist_thres"],
+                    spec["kw"]["model_match_factor"], mpack, **rkw)
+                if rank == 0:
+                    r1, _, fp1 = driver.search_round(
+                        model, fprep, zeros, zeros.clone(), draws[0], spec["kw"]["dist_thres"],
+                        spec["kw"]["model_match_factor"], mpack, **rkw)
+                    rec["round0"] = {"firsts": int(fp.sum()),
+                                     "firsts_equal": bool(torch.equal(fp, fp1)),
+                                     "accept_equal": bool(torch.equal(res.accept, r1.accept))}
+        out.append(rec)
+        del scene, matches
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, out)
+    return gathered
+
+
+# Pose tolerance of a scene-sharded search against the single device: the
+# float-reduction tolerance of tests/test_torch_round.py and
+# tests/test_torch_parallel.py (0.1 mm, 0.01 deg).  Sums over sp shards round
+# in another order, and a pose that moves by a few float32 ulps can flip a
+# correspondence at the gate, which moves the fit by far more than an ulp; the
+# one-rank meshes run the single-device code and are held to 1e-3 mm /
+# 1e-3 deg (_same_search).
+SHARDED_POSE_TOL = (0.1, 0.01)
+
+
+def _check_mesh_runs(tag, results, single, t_gt, smi) -> dict:
+    """Fail unless every rank of a multi-rank phase returned the same matches,
+    the fog switch fired, B2 ran on every rank and B1 not, and no join
+    overflowed; against ``single`` (name -> (matches, stats)), where given,
+    as many matches, each pose within ``SHARDED_POSE_TOL`` (mm, deg), and
+    round 0's first samples and accepts equal.  Prints per-rank peak memory
+    and shard size and rank 0's seconds; returns rank 0's launches by run."""
+    from triplet_match_tpu_torch.io.synthetic import sym_delta
+
+    launches = {}
+    for i, rec0 in enumerate(results[0]):
+        name = rec0["name"]
+        recs = [r[i] for r in results]
+        for r in recs:
+            st = r["stats"]
+            if not st["fine_rescore_full"] or st["join_overflow_max"] != 0:
+                raise AssertionError(f"[{tag}] {name} rank {r['rank']}: fog "
+                                     f"{st['fine_rescore_full']}, overflow "
+                                     f"{st['join_overflow_max']}")
+            if r["launches"]["B2"] <= 0 or r["launches"]["B1"] != 0:
+                raise AssertionError(f"[{tag}] {name} rank {r['rank']}: launches {r['launches']}")
+            if len(r["matches"]) != len(rec0["matches"]) or any(
+                    float(abs(a[0] - b[0]).max()) > 0 or a[1] != b[1]
+                    for a, b in zip(r["matches"], rec0["matches"])):
+                raise AssertionError(f"[{tag}] {name}: rank {r['rank']} returned other matches "
+                                     "than rank 0")
+        if not rec0["matches"]:
+            raise AssertionError(f"[{tag}] {name}: no match")
+        dt, dr = sym_delta(rec0["matches"][0][0], t_gt[name])
+        if not (dt < 1e-3 and dr < 0.5):
+            raise AssertionError(f"[{tag}] {name}: first match {dt * 1e3:.4f} mm / {dr:.4f} deg")
+        st = rec0["stats"]
+        extra = ""
+        if name in single:
+            ref, ref_stats = single[name]
+            if len(ref) != len(rec0["matches"]):
+                raise AssertionError(f"[{tag}] {name}: {len(rec0['matches'])} matches against "
+                                     f"{len(ref)} on one device")
+            gaps = [_pose_gap(a[0], b.transform) for a, b in zip(rec0["matches"], ref)]
+            worst = (max(g[0] for g in gaps), max(g[1] for g in gaps))
+            r0 = rec0.get("round0")
+            extra = (f" | against the single device: {len(ref)} matches, pose gap at most "
+                     f"{worst[0]:.3g} mm / {worst[1]:.3g} deg, hypotheses per round "
+                     f"{st['hypotheses_scored'] / st['rounds']:.0f} against "
+                     f"{ref_stats['hypotheses_scored'] / ref_stats['rounds']:.0f}")
+            if r0 is not None:
+                extra += (f", round 0 first samples equal {r0['firsts_equal']} ({r0['firsts']}),"
+                          f" accepts equal {r0['accept_equal']}")
+                if not (r0["firsts_equal"] and r0["accept_equal"]):
+                    raise AssertionError(f"[{tag}] {name}: round 0 differs from the single "
+                                         f"device {r0}")
+            if not (worst[0] < SHARDED_POSE_TOL[0] and worst[1] < SHARDED_POSE_TOL[1]):
+                raise AssertionError(f"[{tag}] {name}: pose gap {worst} beyond "
+                                     f"{SHARDED_POSE_TOL} mm / deg")
+        prof = rec0.get("profile")
+        if prof:
+            extra += (f" | rank 0 profiled warm call {prof['wall_ms']:.1f} ms, "
+                      f"{prof['collectives']} collectives {prof['collective_ms']:.1f} ms "
+                      f"({100 * prof['collective_ms'] / prof['wall_ms']:.1f} %)")
+        _log(f"[{tag}] {name} mesh {rec0['shape']}: rank 0 first {rec0['seconds'][0]:.3f} s, warm "
+             f"{rec0['seconds'][1]:.3f} s | {len(rec0['matches'])} matches, first "
+             f"{dt * 1e3:.4f} mm / {dr:.4f} deg, identical on {len(recs)} ranks | rounds "
+             f"{st['rounds']} hypotheses {st['hypotheses_scored']} | launches per rank "
+             f"{[r['launches'] for r in recs]} | peak MiB per rank "
+             f"{[round(r['peak_mib'], 1) for r in recs]}, shard {rec0['shard']} points{extra} "
+             f"| {smi}")
+        launches[name] = rec0["launches"]
+    return launches
+
+
+def _check_symmetry(model, disc, sample, policy, smi) -> None:
+    """detect_self_symmetries of the recall box model (tests/test_symmetry.py's
+    rule): the identity first, 2-4 elements, each other one a pi rotation about
+    an axis, within 0.1."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from triplet_match_tpu_torch.index.symmetry import detect_self_symmetries
+
+    pol = dataclasses.replace(policy, num_first_samples=48, num_second_samples=16, query_cap=16,
+                              score_neighbors=256, finalists=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    orbit = detect_self_symmetries(model, disc, sample, pol, seed=0, rounds=3)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = [np.diag(d).astype(np.float32) for d in ([1, -1, -1], [-1, 1, -1], [-1, -1, 1])]
+    ok = (2 <= orbit.shape[0] <= 4 and np.abs(orbit[0] - np.eye(4)).max() < 1e-6
+          and all(any(np.abs(s[:3, :3] - w).max() < 0.1 for w in want)
+                  and np.linalg.norm(s[:3, 3]) < 0.05 for s in orbit[1:]))
+    angles = [round(float(np.degrees(np.arccos(np.clip((np.trace(s[:3, :3]) - 1) / 2, -1, 1)))),
+                    3) for s in orbit]
+    _log(f"[symmetry] recall box model: orbit of {orbit.shape[0]} in {secs:.3f} s, rotation "
+         f"angles {angles} deg | {smi}")
+    if not ok:
+        raise AssertionError(f"[symmetry] orbit {orbit}")
+
+
 def main() -> int:
     import torch
 
@@ -944,8 +1233,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kw = dict(dist_thres=3.0, model_match_factor=0.5, sample_params=sample, discretization=disc,
               policy=policy, max_icp_iterations=10, seed=5)
-    stats, launches131, _ = _main_path(
+    stats131, launches131, matches131 = _main_path(
         "main131", sk, driver, lambda: driver.find_all(model, scene, **kw), t_gt, smi)
+    stats = stats131
     if stats["num_second_samples_effective"] != eff_policy.num_second_samples:
         raise AssertionError("the B1 check ran at other shapes than the search: "
                              f"{eff_policy.num_second_samples} second samples vs "
@@ -980,6 +1270,46 @@ def main() -> int:
     _expect_launches("main131lin", launches_lin131, stats, ("B4",), ("B1", "B2", "B3"))
     walls["main131lin"] = time.perf_counter() - t0
 
+    # --- mesh11 at 131k: a world of one NCCL rank, (1, 1) and (1,) meshes ----------
+    t0 = time.perf_counter()
+    import datetime
+
+    import torch.distributed as dist
+
+    from triplet_match_tpu_torch.parallel.mesh import make_mesh
+    from triplet_match_tpu_torch.parallel.search2d import make_mesh_2d
+
+    store_dir = tempfile.mkdtemp(prefix="_smoke_store_", dir=Path(__file__).resolve().parent)
+    dist.init_process_group("nccl", store=dist.FileStore(str(Path(store_dir) / "store"), 1),
+                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+    mesh11 = make_mesh_2d(1, 1)
+    _log(f"[mesh11] world of {dist.get_world_size()} rank, backend {dist.get_backend()}, mesh "
+         f"{mesh11} | {smi}")
+    launches_mesh = {}
+    for tag, mesh in (("mesh11_131", mesh11), ("mesh1_131", make_mesh(1))):
+        st, launches_mesh[tag], m = _main_path(
+            tag, sk, driver, lambda: driver.find_all(model, scene, mesh=mesh, **kw), t_gt, smi)
+        _expect_launches(tag, launches_mesh[tag], st, ("B1",), ("B2", "B3", "B4"))
+        _same_search(tag, m, matches131, st, stats131, launches_mesh[tag], launches131, smi)
+    walls["mesh11 131k"] = time.perf_counter() - t0
+
+    # --- the voxel-LUT scorer (scorer="jnp"): no kernel, no fog switch ----------------
+    t0 = time.perf_counter()
+    lut_kw = dict(kw, policy=dataclasses.replace(policy, scorer="jnp"))
+    st, launches_lut, _ = _main_path(
+        "lut131", sk, driver, lambda: driver.find_all(model, scene, **lut_kw), t_gt, smi)
+    _expect_launches("lut131", launches_lut, st, (), ("B1", "B2", "B3", "B4"))
+    if st["fine_rescore_full"]:
+        raise AssertionError("[lut131] the fog switch fired on the voxel-LUT route")
+    _log(f"[lut131] first {st['search_first_s']:.3f} s, warm {st['search_warm_s']:.3f} s against "
+         f"main131's {stats131['search_first_s']:.3f} / {stats131['search_warm_s']:.3f} s | {smi}")
+    walls["lut131"] = time.perf_counter() - t0
+
+    # --- self-symmetry detection on the card ------------------------------------------
+    t0 = time.perf_counter()
+    _check_symmetry(model, disc, sample, policy, smi)
+    walls["symmetry"] = time.perf_counter() - t0
+
     t0 = time.perf_counter()
     s_xyz, s_nrm, s_tan, _ = recall_scene_arrays(131072, seed=0)
     with tempfile.TemporaryDirectory(prefix="_smoke_", dir=Path(__file__).resolve().parent) as d:
@@ -1013,7 +1343,33 @@ def main() -> int:
              f"| {smi}")
         if diff > 1e-5:
             raise AssertionError(f"[cli] the two runs printed different transforms ({diff})")
-    walls["cli"] = time.perf_counter() - t0
+        walls["cli"] = time.perf_counter() - t0
+
+        # --- clidist: the CLI under torchrun, two ranks sharing the card, --sp 2 ---
+        t0 = time.perf_counter()
+        out3 = str(Path(d) / "m3.json")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+               "2", "-m", "triplet_match_tpu_torch.cli.match", paths["model"], paths["scene"],
+               *flags, "--sp", "2", "--out", out3]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=str(Path(__file__).resolve().parent))
+        backend_lines = [ln for ln in proc.stderr.splitlines() if "[distributed]" in ln]
+        if proc.returncode != 0:
+            raise AssertionError(f"[clidist] torchrun exit {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        with open(out3) as f:
+            payload = json.load(f)
+        tf = np.asarray(payload["matches"][0]["transform"], np.float32)
+        dt, dr = sym_delta(tf, t_gt)
+        gap = _pose_gap(tf, runs[0])
+        _log(f"[clidist] torchrun 2 ranks --sp 2: exit 0, {len(payload['matches'])} matches, "
+             f"search {payload['elapsed_sec']:.3f} s, run {time.perf_counter() - t0:.3f} s | "
+             f"first match {dt * 1000:.4f} mm / {dr:.4f} deg, {gap[0]:.3g} mm / {gap[1]:.3g} deg "
+             f"from the single-rank run | {' '.join(backend_lines)} | {smi}")
+        if not (dt < 1e-3 and dr < 0.5 and gap[0] < 1e-3):
+            raise AssertionError(f"[clidist] transform {dt * 1000:.4f} mm / {dr:.4f} deg, "
+                                 f"{gap[0]:.3g} mm from the single-rank run")
+    walls["clidist"] = time.perf_counter() - t0
     del prep, scene, groups, rows
 
     # --- 500k fixture: B2 and B3 -----------------------------------------------------
@@ -1064,7 +1420,7 @@ def main() -> int:
 
     # --- 500k main paths -------------------------------------------------------------
     t0 = time.perf_counter()
-    stats5, launches500, _ = _main_path(
+    stats5, launches500, matches500 = _main_path(
         "main500", sk, driver, lambda: driver.find_all(model, scene5, **kw), t_gt5, smi)
     if not stats5["fine_rescore_full"]:
         raise AssertionError("the fog-density switch did not fire at 500k")
@@ -1090,6 +1446,19 @@ def main() -> int:
     if stats5f["join_overflow_max"] != 0:
         raise AssertionError(f"the subset join overflowed by {stats5f['join_overflow_max']}")
     walls["main500full"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    st, launches_mesh["mesh11_500"], m = _main_path(
+        "mesh11_500", sk, driver, lambda: driver.find_all(model, scene5, mesh=mesh11, **kw), t_gt5,
+        smi)
+    if not st["fine_rescore_full"]:
+        raise AssertionError("[mesh11_500] the fog-density switch did not fire")
+    _expect_launches("mesh11_500", launches_mesh["mesh11_500"], st, ("B2",), ("B1", "B3", "B4"))
+    _same_search("mesh11_500", m, matches500, st, stats5, launches_mesh["mesh11_500"], launches500,
+                 smi)
+    dist.destroy_process_group()
+    shutil.rmtree(store_dir, ignore_errors=True)
+    walls["mesh11 500k"] = time.perf_counter() - t0
     del scene5, prep5, fprep5, groups5, rows5
 
     # --- 2M fixture: the bench.py --dense / scaling fixture, seed 1 ---------------------
@@ -1111,7 +1480,7 @@ def main() -> int:
     del prep2m, fprep2m, groups2m, rows2m
     walls["B2 2M"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    stats2m, launches2m, _ = _main_path(
+    stats2m, launches2m, matches2m = _main_path(
         "main2m", sk, driver, lambda: driver.find_all(model, scene2m, **kw), t_gt2m, smi)
     if not stats2m["fine_rescore_full"]:
         raise AssertionError("the fog-density switch did not fire at 2M")
@@ -1193,6 +1562,37 @@ def main() -> int:
     t0 = time.perf_counter()
     _check_prim(smi)
     walls["prim"] = time.perf_counter() - t0
+
+    # --- mesh12, mesh22, mesh212: gloo ranks sharing the card --------------------------
+    from triplet_match_tpu_torch.parallel.distributed import run_local
+
+    mesh_kw = {k: kw[k] for k in ("dist_thres", "model_match_factor", "max_icp_iterations",
+                                  "seed")}
+    single = {"500k": (matches500, stats5), "2M": (matches2m, stats2m)}
+    t_gts = {"500k": t_gt5, "2M": t_gt2m}
+    t0 = time.perf_counter()
+    res12 = run_local(_mesh_rank, 2, "gloo", {"kw": mesh_kw, "runs": [
+        {"name": "500k", "points": 500000, "seed": 0, "shape": (1, 2), "round0": True,
+         "profile": True},
+        {"name": "2M", "points": 2097152, "seed": 1, "shape": (1, 2), "round0": True}]},
+        device_type="cuda", join_timeout=900)
+    for k, v in _check_mesh_runs("mesh12", res12, single, t_gts, smi).items():
+        launches_mesh[f"mesh12_{k}"] = v
+    walls["mesh12"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res4 = run_local(_mesh_rank, 4, "gloo", {"kw": mesh_kw, "runs": [
+        {"name": "mesh22", "points": 500000, "seed": 0, "shape": (2, 2), "profile": True},
+        {"name": "mesh212", "points": 500000, "seed": 0, "shape": (2, 1, 2)}]},
+        device_type="cuda", join_timeout=900)
+    t_gts.update({"mesh22": t_gt5, "mesh212": t_gt5})
+    for k, v in _check_mesh_runs("mesh4", res4, {}, t_gts, smi).items():
+        launches_mesh[k] = v
+    _log(f"[mesh4] hypotheses per round: (2, 2) "
+         f"{res4[0][0]['stats']['hypotheses_scored'] / res4[0][0]['stats']['rounds']:.0f}, "
+         f"(2, 1, 2) "
+         f"{res4[0][1]['stats']['hypotheses_scored'] / res4[0][1]['stats']['rounds']:.0f}, one "
+         f"device {stats5['hypotheses_scored'] / stats5['rounds']:.0f} | {smi}")
+    walls["mesh22, mesh212"] = time.perf_counter() - t0
     walls["total"] = time.perf_counter() - t_all
     _log(f"[wall] seconds per phase {json.dumps({k: round(v, 3) for k, v in walls.items()})} | "
          f"{smi}")
@@ -1200,7 +1600,8 @@ def main() -> int:
     paths = {"main131": launches131, "main131full": launches_full131,
              "main131lin": launches_lin131, "main500": launches500,
              "main500full": launches_full500, "main2m": launches2m,
-             "mainlattice": launches_lat, "multi1m": launches_multi}
+             "mainlattice": launches_lat, "multi1m": launches_multi, "lut131": launches_lut,
+             **launches_mesh}
 
     def entry(b, name, source, replaces, path, phases):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

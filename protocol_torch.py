@@ -4,6 +4,7 @@
         [--seeds 10] [--settings coarse:8:32:4,exact:8:16:1]
     python3 protocol_torch.py scaling [--sizes 2097152,4194304,6291456,8388608]
     python3 protocol_torch.py baseline [--configs 1,2,3,4,5,6] [--search-seeds 5]
+    python3 protocol_torch.py mesh --ranks 4 [--runs 2x2@500000:0,1x4@2097152:1,4@500000:0]
 
 ``recall`` is ``scripts/recall_study.py``: the model family's compiled
 model, ``--seeds`` touching-fog scenes of ``--points`` points (seeds 0 ...),
@@ -43,6 +44,20 @@ config) and its reference row (``evidence_r4/configs.jsonl``,
 one row per model, plus one stats row per model with ``raycast_s`` and the
 cone cull's survivors per origin.  A row whose process fails prints
 ``{"FAILED": <exit code>}``.
+
+``mesh`` runs the box model's recall scenes under multi-rank meshes on a
+node with one card per rank: it starts ``--ranks`` processes with
+``torch.distributed.run`` (NCCL), and for each run ``<shape>@<points>:<seed>``
+(shape ``dp x sp``, ``dcn x dp x sp`` or ``n`` for the 1-axis mesh) every
+rank searches the scene under the mesh twice (first, warm), rank 0 searches
+it alone on its card as well, and rank 0 profiles one more warm mesh call.
+Its row: found and pose error, the gap to the single device's pose and
+whether every integer outcome (matches, rounds, accepts, hypotheses) is the
+single device's (one chunk) or twice / n times its hypotheses (several
+chunks), whether every rank returned the same matches, each rank's peak
+memory and launches, the collectives' count and host ms (the "collective"
+ranges) and the NCCL kernels' device ms in rank 0's profiled call, the
+seconds, the backend and the card.
 """
 
 from __future__ import annotations
@@ -437,6 +452,111 @@ def _baseline_rows(config, name, models, scene, t_gts, compile_s, prepare_s, kw,
     _emit({**row, "reference": _ref_row(config, name), "card": smi})
 
 
+def _mesh_shape(text: str) -> dict:
+    dims = [int(x) for x in text.split("x")]
+    names = {1: ("chips",), 2: ("dp", "sp"), 3: ("dcn", "dp", "sp")}[len(dims)]
+    return dict(zip(names, dims))
+
+
+def mesh_ranks(runs: str) -> None:
+    """This rank's part of the mesh protocol (under torch.distributed.run)."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from triplet_match_tpu_torch.core.transforms import pose_delta
+    from triplet_match_tpu_torch.io.synthetic import model_arrays, recall_scene, sym_delta
+    from triplet_match_tpu_torch.parallel import distributed as pdist
+    from triplet_match_tpu_torch.parallel.mesh import COLLECTIVE
+    from triplet_match_tpu_torch.search import driver, score_kernel as sk
+
+    pdist.initialize()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _, smi, disc, sample, policy = _setup()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    model, _ = _compile(model_arrays("box"), disc, sample, policy, dev)
+    kw = dict(sample_params=sample, discretization=disc, policy=policy, **FIND)
+
+    def so3(t):
+        t = torch.as_tensor(t, dtype=torch.float64).clone()
+        u, _, vt = torch.linalg.svd(t[:3, :3])
+        t[:3, :3] = u @ vt
+        return t
+
+    for run in runs.split(","):
+        shape_text, rest = run.split("@")
+        points, seed = (int(x) for x in rest.split(":"))
+        shape = _mesh_shape(shape_text)
+        scene, t_gt = recall_scene(points, seed, device=dev)
+        mesh = pdist.make_global_mesh(shape)
+        got: dict = {}
+
+        def search(mesh_or_none, key):
+            got[key] = driver.find_all(model, scene, mesh=mesh_or_none, **kw)
+            return got[key]
+
+        recs = []
+        for call in range(2):
+            dist.barrier()
+            recs.append(_search(lambda: search(mesh, "mesh"), t_gt))
+            if call == 0:
+                stats, matches = dict(driver.LAST_SEARCH_STATS), got["mesh"]
+        mine = {"rank": rank, "peak_mib": recs[0]["peak_mib"], "launches": recs[0]["launches"],
+                "transforms": [m.transform.tolist() for m in matches]}
+        row = None
+        if rank == 0:
+            single = [_search(lambda: search(None, "single"), t_gt) for _ in range(2)]
+            ref_stats, ref = dict(driver.LAST_SEARCH_STATS), got["single"]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                driver.find_all(model, scene, mesh=mesh, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            ev = prof.events()
+            coll = [e for e in ev if e.name == COLLECTIVE and e.device_type == DeviceType.CPU]
+            nccl = [e for e in ev if e.device_type == DeviceType.CUDA and "nccl" in e.name.lower()]
+            gaps = [pose_delta(so3(a.transform), so3(b.transform))
+                    for a, b in zip(matches, ref)]
+            chunks = world // shape.get("sp", 1)
+            row = {"protocol": "mesh", "mesh": shape, "ranks": world,
+                   "backend": dist.get_backend(), "scene_points": points, "seed": seed,
+                   "found": bool(recs[0]["mm"] is not None and recs[0]["mm"] < 1.0
+                                 and recs[0]["deg"] < 0.5),
+                   "mm": recs[0]["mm"], "deg": recs[0]["deg"], "matches": len(matches),
+                   "single_matches": len(ref),
+                   "gap_mm": max((float(g[0]) * 1e3 for g in gaps), default=None),
+                   "gap_deg": max((float(g[1]) * 57.29577951308232 for g in gaps),
+                                  default=None),
+                   "hypotheses_per_round": stats["hypotheses_scored"] / stats["rounds"],
+                   "single_hypotheses_per_round": (ref_stats["hypotheses_scored"]
+                                                   / ref_stats["rounds"]),
+                   "chunks": chunks,
+                   "same_outcome_as_single": (chunks == 1 and len(matches) == len(ref) and all(
+                       stats[k] == ref_stats[k] for k in ("rounds", "accepted",
+                                                          "hypotheses_scored"))),
+                   "fog": recs[0]["fog"], "join_overflow_max": recs[0]["join_overflow_max"],
+                   "search_s_first": recs[0]["search_s"], "search_s_warm": recs[1]["search_s"],
+                   "single_search_s": [r["search_s"] for r in single],
+                   "profiled_wall_ms": wall * 1e3, "collectives": len(coll),
+                   "collective_host_ms": sum(e.cpu_time_total for e in coll) / 1e3,
+                   "nccl_device_ms": sum(e.time_range.elapsed_us() for e in nccl) / 1e3,
+                   "shard": points // shape.get("sp", 1), "card": smi}
+        else:
+            driver.find_all(model, scene, mesh=mesh, **kw)  # rank 0's profiled call
+            torch.cuda.synchronize()
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        if rank == 0:
+            row["same_matches_on_every_rank"] = all(r["transforms"] == mine["transforms"]
+                                                    for r in every)
+            row["peak_mib_per_rank"] = [r["peak_mib"] for r in every]
+            row["launches_per_rank"] = [r["launches"] for r in every]
+            print(json.dumps(row), flush=True)
+        del scene
+    dist.destroy_process_group()
+
+
 def _isolated(argv: list[str], failed: dict) -> None:
     res = subprocess.run([sys.executable, str(Path(__file__).resolve()), *argv])
     if res.returncode != 0:
@@ -460,7 +580,17 @@ def main() -> int:
     bl.add_argument("--one", type=int, default=None, help="run one config in this process")
     bl.add_argument("--search-seeds", default="5",
                     help="the searches' seeds of configs 3-6, one row each (the script's: 5)")
+    ms = sub.add_parser("mesh")
+    ms.add_argument("--ranks", type=int, default=4, help="processes (one card each)")
+    ms.add_argument("--runs", default="2x2@500000:0,1x4@2097152:1,4@500000:0",
+                    help="<shape>@<points>:<seed>, comma-separated; shape dp x sp, "
+                         "dcn x dp x sp, or n (1-axis)")
+    ms.add_argument("--rank-main", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+
+    if args.protocol == "mesh" and args.rank_main:
+        mesh_ranks(args.runs)
+        return 0
 
     if args.protocol == "recall" and args.no_isolate:
         recall_one(args)
@@ -484,6 +614,12 @@ def main() -> int:
                        str(args.points), "--seeds", str(args.seeds), "--settings", s.strip()],
                       {"protocol": "recall", "model": args.model, "points": args.points,
                        "setting": s.strip()})
+    elif args.protocol == "mesh":
+        res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                              "--nproc-per-node", str(args.ranks), str(Path(__file__).resolve()),
+                              "mesh", "--rank-main", "--runs", args.runs])
+        if res.returncode != 0:
+            print(json.dumps({"protocol": "mesh", "FAILED": res.returncode}), flush=True)
     elif args.protocol == "scaling":
         for s in args.sizes.split(","):
             _isolated(["scaling", "--one", s.strip()],

@@ -126,11 +126,12 @@ def test_matcher_finds_the_planted_pose(models):
 def test_unported_serving_surfaces_raise(models):
     _, _, path = models
     tmodel = api.Model.load(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    cloud = tmodel.cloud()
+    with pytest.raises(TypeError, match="DeviceMesh"):
         api.MultiMatcher([tmodel], mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         api.Matcher(tmodel, mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        api.Scene(tmodel.cloud()).find_all_parallel(tmodel, mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        api.Scene(cloud).find_all_parallel(tmodel, mesh=object())
     with pytest.raises(RuntimeError, match="uninitialized"):
         api.Model(tmodel.cloud()).query(np.zeros(4, np.float32))

@@ -3,7 +3,7 @@
 Exit 0 with a parseable JSON result whose pose lies within the contract (and
 a Chrome trace under ``--profile-dir``), again from the saved ``.npz`` with
 the same transform; exit 2 when the scene
-holds no instance; exit 1 naming ROADMAP A12 for a multi-device mesh.
+holds no instance; exit 1 when the mesh flags ask for more ranks than run.
 """
 
 import dataclasses
@@ -61,9 +61,9 @@ def test_cli_exit_codes_without_instance_and_for_meshes(files, capsys):
     _, paths, _ = files
     assert cli.main([paths["model"], paths["fog"], *FLAGS]) == 2
     assert json.loads(capsys.readouterr().out)["matches"] == []
-    for axis in ("--dp", "--sp", "--dcn"):
-        assert cli.main([paths["model"], paths["scene"], axis, "2"]) == 1
-        assert "A12" in capsys.readouterr().err
+    for axis in ("--dp", "--sp", "--dcn"):  # two ranks asked for, one process
+        assert cli.main([paths["model"], paths["scene"], *FLAGS, axis, "2"]) == 1
+        assert "need 2 ranks" in capsys.readouterr().err
 
 
 def test_estimate_edge_tangents_matches_jax():

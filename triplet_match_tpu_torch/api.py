@@ -15,7 +15,8 @@ cloud (the CUDA card unless the caller built it on the CPU).  Differences
 from the reference are the JAX package's: searches are deterministic under
 ``seed``, ``pair_count()`` returns the real count, ``instantiate`` places
 every model point by default, and ``statistics`` is populated.  ``mesh=``
-(ROADMAP A12) is not ported and raises.
+takes a ``torch.distributed`` ``DeviceMesh`` over every rank (see
+``parallel/``), each rank a process making the same calls.
 """
 
 from __future__ import annotations
@@ -38,10 +39,8 @@ from triplet_match_tpu_torch.core.cloud import PointCloud, pad_capacity
 from triplet_match_tpu_torch.core.transforms import strict_fp32
 from triplet_match_tpu_torch.index import model as model_index
 from triplet_match_tpu_torch.index.serialize import load_discretization, load_model, save_model
+from triplet_match_tpu_torch.parallel.mesh import check_mesh
 from triplet_match_tpu_torch.search import driver
-
-_MESH = driver._MESH
-
 
 @dataclasses.dataclass
 class Statistics:
@@ -158,13 +157,18 @@ class Scene:
         self._cloud = cloud
         self._policy = policy
         self._prep = None
+        self._prep_mesh = None
         self.statistics = Statistics()
 
-    def _prepare(self, device: torch.device) -> driver.ScenePrep:
-        """The scene preparation on the model's device, made once."""
-        if self._prep is None or self._prep.cloud.device != device:
+    def _prepare(self, device: torch.device, mesh=None) -> driver.ScenePrep:
+        """The scene preparation on the model's device (under ``mesh``), made
+        once per device and mesh."""
+        if (self._prep is None or self._prep.cloud.device != device
+                or self._prep_mesh is not mesh):
             with strict_fp32():
-                self._prep = driver.prepare_scene(self._cloud.to(device), self._policy)
+                self._prep = driver.prepare_scene(self._cloud.to(device), self._policy,
+                                                  mesh=mesh)
+            self._prep_mesh = mesh
         return self._prep
 
     def find_all_parallel(self, model: Model, dist_thres: float = 3.0,
@@ -173,16 +177,17 @@ class Scene:
                           max_icp_iterations: int = 10, seed: int = 13, mesh=None,
                           progress=None) -> list[driver.Match]:
         """``scene::find_all_parallel`` (include/scene:47-48) on the model's
-        device.  ``progress``: optional per-round callback with the fraction of
-        the current phase done (``utils.progress.ProgressBar(...).poll``)."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
+        device.  ``mesh``: a ``DeviceMesh`` over every rank, 1-axis for
+        hypothesis data parallelism, ("dp", "sp") to shard the scene as well
+        (see ``driver.find_all``).  ``progress``: optional per-round callback
+        with the fraction of the current phase done
+        (``utils.progress.ProgressBar(...).poll``)."""
         matches = driver.find_all(
             model.compiled, self._cloud, dist_thres=dist_thres,
             model_match_factor=model_match_factor, early_out_factor=early_out_factor,
             sample_params=sample_params, discretization=model._params, policy=self._policy,
-            max_icp_iterations=max_icp_iterations, seed=seed, prep=self._prepare(model.device),
-            progress=progress)
+            max_icp_iterations=max_icp_iterations, seed=seed,
+            prep=self._prepare(model.device, mesh), mesh=mesh, progress=progress)
         st = driver.LAST_SEARCH_STATS
         self.statistics = Statistics(rejection_rate=st.get("rejection_rate", 0.0),
                                      rounds=st.get("rounds", 0),
@@ -208,34 +213,38 @@ class Matcher:
     """Serving session: one compiled model, a stream of scenes.
 
     Every incoming cloud's capacity is padded up to a power-of-two bucket
-    (floor ``min_capacity``), as the JAX package does to reuse its compiled
-    programs; here a bucket keeps the search's tensor shapes, and so the
-    caching allocator's blocks, the same across scenes of similar size::
+    (floor ``min_capacity``, aligned to the mesh's sp extent), as the JAX
+    package does to reuse its compiled programs; here a bucket keeps the
+    search's tensor shapes, and so the caching allocator's blocks, the same
+    across scenes of similar size::
 
         matcher = Matcher(model, policy=SearchPolicy(...))
         for cloud in scene_stream:
             matches = matcher.match(cloud)
     """
 
+    _mesh = None
+
     def __init__(self, model: Model, policy: SearchPolicy = DEFAULT_POLICY, *, mesh=None,
                  min_capacity: int = 4096):
         if mesh is not None:
-            raise NotImplementedError(_MESH)
+            check_mesh(mesh)
         self._model = model
         self._policy = policy
+        self._mesh = mesh
         self._min_capacity = min_capacity
         self.statistics = Statistics()
 
     def bucket_capacity(self, n: int) -> int:
         """Capacity bucket for a cloud of ``n`` points (``_bucket_capacity``)."""
-        return _bucket_capacity(n, self._min_capacity)
+        return _bucket_capacity(n, self._min_capacity, self._mesh)
 
     def match(self, cloud: PointCloud, **kwargs) -> list[driver.Match]:
         """Search one scene of any capacity.  Keyword arguments pass through
         to :meth:`Scene.find_all_parallel` (``dist_thres``, ``seed``, ...)."""
         cloud = pad_capacity(cloud, self.bucket_capacity(cloud.capacity))
         scene = Scene(cloud, self._policy)
-        matches = scene.find_all_parallel(self._model, **kwargs)
+        matches = scene.find_all_parallel(self._model, mesh=self._mesh, **kwargs)
         self.statistics = scene.statistics
         return matches
 
@@ -255,14 +264,23 @@ class Matcher:
         return caps
 
 
-def _bucket_capacity(n: int, min_capacity: int) -> int:
-    """Smallest power-of-two serving capacity >= ``n`` (floor
-    ``min_capacity``); idempotent, so a warmup scene built at a bucket lands
-    in that bucket."""
+def _bucket_capacity(n: int, min_capacity: int, mesh=None) -> int:
+    """Smallest serving capacity bucket >= ``n``: a power of two (floor
+    ``min_capacity``) rounded up to the mesh's sp extent when it has one (the
+    sharded round needs the capacity divisible by sp).  Idempotent, so a
+    warmup scene built at a bucket lands in that bucket even where the sp
+    alignment makes it no power of two."""
+    sp = 1
+    if mesh is not None and "sp" in (mesh.mesh_dim_names or ()):
+        sp = mesh.size(mesh.mesh_dim_names.index("sp"))
+
+    def align(c):
+        return -(-c // sp) * sp
+
     p = 1 << max(int(min_capacity) - 1, 0).bit_length()
-    while p < n:
+    while align(p) < n:
         p <<= 1
-    return p
+    return align(p)
 
 
 def _warmup_scene(models: list[Model], capacity: int, dense: bool = False) -> PointCloud:
@@ -312,15 +330,15 @@ class MultiMatcher:
     every model (``driver.find_all_multi``); a scene point claimed by one
     model's match is unavailable to the rest.  Capacities are bucketed as in
     :class:`Matcher`.  With ``raycast_origins`` each match is raycast-verified
-    and ``min_cast_score`` drops the weaker ones.  ``mesh=`` (ROADMAP A12) is
-    not ported and raises.
+    and ``min_cast_score`` drops the weaker ones.  ``mesh``: as in
+    :class:`Matcher`, for the scene preparation and every model's search.
     """
 
     def __init__(self, models: list[Model], policy: SearchPolicy = DEFAULT_POLICY, *,
                  mesh=None, min_capacity: int = 4096, raycast_origins=None,
                  min_cast_score: float | None = None):
         if mesh is not None:
-            raise NotImplementedError(_MESH)
+            check_mesh(mesh)
         if not models:
             raise ValueError("MultiMatcher needs at least one model")
         # find_all quantizes its query features under one set of params, which
@@ -331,13 +349,14 @@ class MultiMatcher:
                              "or serve them from separate Matchers")
         self._models = list(models)
         self._policy = policy
+        self._mesh = mesh
         self._min_capacity = min_capacity
         self._raycast_origins = raycast_origins
         self._min_cast_score = min_cast_score
         self.statistics = Statistics()
 
     def bucket_capacity(self, n: int) -> int:
-        return _bucket_capacity(n, self._min_capacity)
+        return _bucket_capacity(n, self._min_capacity, self._mesh)
 
     def match(self, cloud: PointCloud, **kwargs) -> list[list[driver.Match]]:
         """Search one scene with every model; one match list per model.
@@ -346,10 +365,12 @@ class MultiMatcher:
         ``driver.LAST_MULTI_SEARCH_STATS``; ``statistics`` aggregates them."""
         cloud = pad_capacity(cloud, self.bucket_capacity(cloud.capacity))
         with strict_fp32():
-            prep = driver.prepare_scene(cloud.to(self._models[0].device), self._policy)
+            prep = driver.prepare_scene(cloud.to(self._models[0].device), self._policy,
+                                        mesh=self._mesh)
         kwargs.setdefault("discretization", self._models[0]._params)
         results = driver.find_all_multi(
             [m.compiled for m in self._models], cloud, policy=self._policy, prep=prep,
+            mesh=self._mesh,
             raycast_origins=self._raycast_origins, min_cast_score=self._min_cast_score,
             **kwargs)
         per_model = driver.LAST_MULTI_SEARCH_STATS

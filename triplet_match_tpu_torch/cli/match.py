@@ -5,13 +5,23 @@ PyTorch port (counterpart of ``triplet_match_tpu.cli.match``, ``tm-match``).
         [--dist-thres 3.0] [--model-match-factor 0.4] [--seed 13] \\
         [--distance-steps 20] [--angle-step-deg 10] \\
         [--min-diameter-factor 0.3] [--max-diameter-factor 0.95] \\
-        [--max-icp 10] [--save-model model.npz] [--out matches.json] [--cpu]
+        [--max-icp 10] [--save-model model.npz] [--out matches.json] [--cpu] \
+        [--dp N] [--sp N] [--dcn N] [--host-devices N]
 
 (or ``python -m triplet_match_tpu_torch.cli.match ...``).  The search runs on
 the CUDA card, or with ``--cpu`` on the CPU.  Exit code 0 with matches, 2
-without, 1 on an option the port does not run: the multi-device meshes
-(``--dp`` / ``--sp`` / ``--dcn`` above 1, ROADMAP A12).  The JSON result goes
-to stdout or ``--out``, progress to stderr.
+without, 1 when the ranks cannot form the requested mesh.  The JSON result
+goes to stdout or ``--out``, progress to stderr; under several ranks rank 0
+alone writes them.
+
+Multi-device, with the JAX CLI's meaning: ``--dp`` runs one RANSAC chunk per
+rank with a finalist join, ``--sp`` also shards every scene array (the
+capacity is padded to a multiple), ``--dcn`` adds an outer axis with a
+hierarchical join.  The ranks come from ``torchrun`` (one per card, NCCL;
+the CLI initialises from its environment), or, with ``--host-devices N``,
+the CLI starts N ranks on this machine itself (``parallel.distributed.
+run_local``: NCCL when each has a card of its own, gloo when they share one
+card or run on the CPU).
 
 The demo app's discretization {0.05 distance fraction, 10 deg}
 (apps/triplet_match.cpp:17-20) maps to --distance-steps 20 --angle-step-deg 10.
@@ -24,6 +34,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import sys
 import time
 
@@ -32,6 +43,7 @@ import torch
 
 from triplet_match_tpu_torch.api import Model, Scene
 from triplet_match_tpu_torch.config import DEFAULT_POLICY, DiscretizationParams, SampleParams
+from triplet_match_tpu_torch.core.cloud import pad_capacity
 from triplet_match_tpu_torch.io.pcd import read_pcd
 from triplet_match_tpu_torch.utils.progress import ProgressBar
 from triplet_match_tpu_torch.utils.trace import device_trace
@@ -64,20 +76,77 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", help="write matches as JSON")
     p.add_argument("--profile-dir", help="write a torch.profiler Chrome trace of the search")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the CUDA card")
-    for axis in ("dp", "sp", "dcn"):
-        p.add_argument(f"--{axis}", type=int, default=1,
-                       help="multi-device mesh axis (not ported: only 1)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel mesh axis: each of N ranks RANSACs its own hypothesis "
+                        "chunk (parallel/search.py)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="scene-sharding mesh axis: scene arrays split across N ranks "
+                        "(parallel/search2d.py); the scene capacity is padded to a multiple")
+    p.add_argument("--dcn", type=int, default=1,
+                   help="outer mesh axis with a hierarchical finalist join")
+    p.add_argument("--host-devices", type=int,
+                   help="run the search on N ranks of this machine (spawned processes)")
     p.add_argument("--quiet", action="store_true")
     return p
 
 
+def _build_mesh(args, device_type: str):
+    """The mesh the flags ask for, over the ranks of the process group (None
+    for one rank without mesh flags)."""
+    from torch.distributed import get_world_size, is_initialized
+
+    from triplet_match_tpu_torch.parallel import mesh as pmesh
+    from triplet_match_tpu_torch.parallel import search2d
+
+    n = args.dcn * args.dp * args.sp
+    world = get_world_size() if is_initialized() else 1
+    if n == 1 and world == 1:
+        return None
+    if world > n:
+        raise ValueError(f"the mesh flags ask for {n} ranks, the process group has {world}")
+    if args.dcn > 1:
+        return search2d.make_mesh_3d(args.dcn, args.dp, args.sp, device_type=device_type)
+    if args.sp > 1:
+        return search2d.make_mesh_2d(args.dp, args.sp, device_type=device_type)
+    return pmesh.make_mesh(args.dp, device_type=device_type)
+
+
+def _rank_main(argv, policy) -> int:
+    """``main`` on one rank of a ``--host-devices`` run, under the spawning
+    process's search policy."""
+    global POLICY
+    POLICY = policy
+    return main(argv)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    log = (lambda *a: None) if args.quiet else (lambda *a: print(*a, file=sys.stderr))
-    if args.dp * args.sp * args.dcn > 1:
-        print("error: --dp / --sp / --dcn above 1 need the multi-device meshes, not ported yet "
-              "(ROADMAP queue A, A12)", file=sys.stderr)
+    device_type = "cpu" if args.cpu else "cuda"
+    if args.host_devices and args.host_devices > 1:
+        from triplet_match_tpu_torch.parallel.distributed import run_local
+
+        rest = list(sys.argv[1:] if argv is None else argv)
+        i = rest.index("--host-devices")
+        del rest[i:i + 2]
+        return run_local(_rank_main, args.host_devices, None, rest, POLICY,
+                         device_type=device_type)
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        from triplet_match_tpu_torch.parallel.distributed import initialize
+
+        initialize(device_type=device_type)  # torchrun
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    log = ((lambda *a: None) if args.quiet or not rank0
+           else (lambda *a: print(*a, file=sys.stderr)))
+    try:
+        mesh = _build_mesh(args, device_type)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
         return 1
+    if mesh is not None:
+        log(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} over {mesh.size()} ranks, "
+            f"backend {dist.get_backend()}")
 
     device = torch.device("cpu" if args.cpu else "cuda")
     disc = DiscretizationParams(distance_step_count=args.distance_steps,
@@ -106,22 +175,25 @@ def main(argv=None) -> int:
     log(f"model ready in {time.perf_counter() - t0:.2f}s: diameter={model.diameter():.4f} "
         f"resolution={model.resolution():.5f} edge_points={model.point_count()} "
         f"pairs={model.pair_count()}")
-    if args.save_model:
+    if args.save_model and rank0:
         model.save(args.save_model)
         log(f"compiled model saved to {args.save_model}")
 
     scene_cloud = maybe_estimate(read_pcd(args.scene_pcd, device=device), "scene")
+    if args.sp > 1:
+        scene_cloud = pad_capacity(scene_cloud, args.sp)
     log(f"scene: {int(scene_cloud.count())} points")
     scene = Scene(scene_cloud, POLICY)
 
-    bar = None if args.quiet else ProgressBar(prefix="search ")
+    bar = None if args.quiet or not rank0 else ProgressBar(prefix="search ")
     t1 = time.perf_counter()
-    tracer = device_trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
+    tracer = (device_trace(args.profile_dir) if args.profile_dir and rank0
+              else contextlib.nullcontext())
     with tracer:
         matches = scene.find_all_parallel(
             model, dist_thres=args.dist_thres, model_match_factor=args.model_match_factor,
             early_out_factor=args.early_out_factor, sample_params=sample,
-            max_icp_iterations=args.max_icp, seed=args.seed,
+            max_icp_iterations=args.max_icp, seed=args.seed, mesh=mesh,
             progress=bar.poll if bar else None)
     if args.profile_dir:
         log(f"device trace written to {args.profile_dir}")
@@ -141,10 +213,10 @@ def main(argv=None) -> int:
         log(np.array_str(np.asarray(m.transform), precision=5, suppress_small=True))
 
     payload = json.dumps({"matches": out, "elapsed_sec": dt}, indent=2)
-    if args.out:
+    if rank0 and args.out:
         with open(args.out, "w") as f:
             f.write(payload + "\n")
-    else:
+    elif rank0:
         print(payload)
     return 0 if matches else 2
 

@@ -15,6 +15,8 @@ import contextlib
 
 import torch
 
+from triplet_match_tpu_torch.parallel.mesh import psum, sharded
+
 
 @contextlib.contextmanager
 def strict_fp32():
@@ -84,28 +86,48 @@ def base_transform(src_i, src_j, src_t, tgt_i, tgt_j, tgt_t) -> torch.Tensor:
     return _rigid(r, t)
 
 
-def weighted_kabsch(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def weighted_kabsch(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                    group=None) -> torch.Tensor:
     """Least-squares rigid transform mapping src -> dst under weights.
 
     src, dst: [..., N, 3]; w: [..., N].  Returns [..., 4, 4]; all-zero
     weights return identity (umeyama without scaling, det(R) = +1).
+
+    ``group``: a ``parallel.mesh.MeshAxis`` when the points are one shard of a
+    scene sharded over it.  The weight and the weighted sums of src and dst
+    are summed over the shards first, then the covariance about those global
+    means (two collectives: raw second moments would lose the pose's digits
+    to cancellation in float32), so every shard computes the same fit.
     """
-    # moments as elementwise products and reductions over N: a matmul whose
-    # contraction is the N-long point axis runs as one serial GEMM tile on the
-    # card (~0.9 ms at N = 131072, where the reduction takes microseconds)
-    wn = (w / torch.clamp(w.sum(-1, keepdim=True), min=1e-12))[..., None]
-    mu_s = (wn * src).sum(-2)
-    mu_d = (wn * dst).sum(-2)
-    ds = src - mu_s[..., None, :]
-    dd = dst - mu_d[..., None, :]
-    sigma = ((wn * dd)[..., :, None] * ds[..., None, :]).sum(-3)  # cov(dst, src)
+    if not sharded(group):
+        # moments as elementwise products and reductions over N: a matmul
+        # whose contraction is the N-long point axis runs as one serial GEMM
+        # tile on the card (~0.9 ms at N = 131072, where the reduction takes
+        # microseconds)
+        wn = (w / torch.clamp(w.sum(-1, keepdim=True), min=1e-12))[..., None]
+        mu_s = (wn * src).sum(-2)
+        mu_d = (wn * dst).sum(-2)
+        ds = src - mu_s[..., None, :]
+        dd = dst - mu_d[..., None, :]
+        sigma = ((wn * dd)[..., :, None] * ds[..., None, :]).sum(-3)  # cov(dst, src)
+        wtot = w.sum(-1)
+    else:
+        first = psum(torch.cat([w.sum(-1, keepdim=True), (w[..., None] * src).sum(-2),
+                                 (w[..., None] * dst).sum(-2)], dim=-1), *group)
+        wtot = first[..., 0]
+        wsum = torch.clamp(wtot, min=1e-12)[..., None]
+        mu_s, mu_d = first[..., 1:4] / wsum, first[..., 4:7] / wsum
+        wn = (w / wsum)[..., None]
+        ds = src - mu_s[..., None, :]
+        dd = dst - mu_d[..., None, :]
+        sigma = psum(((wn * dd)[..., :, None] * ds[..., None, :]).sum(-3), *group)
     u, _, vt = torch.linalg.svd(sigma)
     det = torch.linalg.det(u @ vt)
     fix = torch.ones(sigma.shape[:-2] + (3,), dtype=sigma.dtype, device=sigma.device)
     fix[..., 2] = torch.sign(det)
     r = u @ (fix[..., :, None] * vt)
     t = mu_d - (r @ mu_s[..., None])[..., 0]
-    degenerate = w.sum(-1) <= 1e-12
+    degenerate = wtot <= 1e-12
     eye = torch.eye(3, dtype=src.dtype, device=src.device).expand_as(r)
     r = torch.where(degenerate[..., None, None], eye, r)
     t = torch.where(degenerate[..., None], torch.zeros_like(t), t)
@@ -113,7 +135,7 @@ def weighted_kabsch(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> to
 
 
 def gauss_newton_pose_step(src: torch.Tensor, dst: torch.Tensor, m_dir: torch.Tensor,
-                           m_kind: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+                           m_kind: torch.Tensor, w: torch.Tensor, group=None) -> torch.Tensor:
     """One Gauss-Newton rigid update of a hybrid point-to-plane objective,
     batched over leading dims.
 
@@ -126,7 +148,9 @@ def gauss_newton_pose_step(src: torch.Tensor, dst: torch.Tensor, m_dir: torch.Te
     Rodrigues' formula with the axis guarded at angle 1e-12.
 
     src, dst, m_dir: [..., N, 3]; m_kind: [..., N] bool; w: [..., N].
-    Returns [..., 4, 4], the small update as a rigid pose.
+    Returns [..., 4, 4], the small update as a rigid pose.  ``group``: as in
+    ``weighted_kabsch``; the normal equations are sums over points, summed
+    over the shards in one collective.
     """
     def project(v):  # v [..., N, 3] -> M v
         along = (v * m_dir).sum(-1, keepdim=True) * m_dir
@@ -144,6 +168,9 @@ def gauss_newton_pose_step(src: torch.Tensor, dst: torch.Tensor, m_dir: torch.Te
     mw = mcols * w[..., None, :, None]
     a = torch.einsum("...ind,...jnd->...ij", mw, mcols)
     b = -torch.einsum("...ind,...nd->...i", mw, md)
+    if sharded(group):
+        ab = psum(torch.cat([a.flatten(-2), b], dim=-1), *group)
+        a, b = ab[..., :36].unflatten(-1, (6, 6)), ab[..., 36:]
     eye6 = torch.eye(6, dtype=a.dtype, device=a.device)
     tr = torch.diagonal(a, dim1=-2, dim2=-1).sum(-1)
     a = a + (1e-6 * tr / 6.0)[..., None, None] * eye6

@@ -8,6 +8,9 @@ stops on its own; a finished pose keeps its state while the others go on.
 
 The scene is one shared cloud ([N] fields, every pose scores all of it) or a
 batch of per-pose sub-clouds ([F, C] fields, the candidate-subset join).
+Under a mesh the scene is one shard of a scene sharded over ``group`` (a
+``parallel.mesh.MeshAxis``): every count, score and fit is summed over the
+shards, so each loop's stopping test reads the same value on every shard.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from triplet_match_tpu_torch.core.transforms import (
     weighted_kabsch,
 )
 from triplet_match_tpu_torch.index.model import CompiledModel
+from triplet_match_tpu_torch.parallel.mesh import psum, sharded
 from triplet_match_tpu_torch.search.score import DenseCorrs, finish_find
 
 
@@ -39,7 +43,8 @@ def _select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 def icp_refine(model: CompiledModel, scene, tangent_mask, consumed, t0: torch.Tensor,
                dist_thres, max_iterations: int, tight_iterations: int = 2,
                weighted_distance: bool = False, negative_scores: bool = False,
-               point_to_plane: bool = False, samples_on_all: bool = True) -> IcpResult:
+               point_to_plane: bool = False, samples_on_all: bool = True,
+               group=None) -> IcpResult:
     """Refine poses ``t0`` [F, 4, 4].
 
     After the relaxed loop, ``tight_iterations`` extra steps run at the
@@ -51,7 +56,8 @@ def icp_refine(model: CompiledModel, scene, tangent_mask, consumed, t0: torch.Te
     def _ff(t, thres):
         return finish_find(model, scene, tangent_mask, consumed, t, thres,
                            weighted_distance=weighted_distance,
-                           negative_scores=negative_scores, samples_on_all=samples_on_all)
+                           negative_scores=negative_scores, samples_on_all=samples_on_all,
+                           group=group)
 
     f = t0.shape[0]
     if max_iterations == 0:
@@ -66,7 +72,7 @@ def icp_refine(model: CompiledModel, scene, tangent_mask, consumed, t0: torch.Te
         if not bool(active.any()):
             break
         t_new = weighted_kabsch(scene.xyz, model.cloud.xyz[corrs.model_idx],
-                                corrs.valid.to(torch.float32))
+                                corrs.valid.to(torch.float32), group=group)
         proj = _ff(t_new, relaxed)
         improved = proj.count >= corrs.count  # a strict shrink stops (impl/scene.hpp:396)
         take = active & improved
@@ -79,7 +85,7 @@ def icp_refine(model: CompiledModel, scene, tangent_mask, consumed, t0: torch.Te
         t_best = tight_polish(model, scene, tangent_mask, consumed, t_best, dist_thres,
                               tight_iterations, weighted_distance=weighted_distance,
                               negative_scores=negative_scores, point_to_plane=point_to_plane,
-                              samples_on_all=samples_on_all)
+                              samples_on_all=samples_on_all, group=group)
         corrs = _ff(t_best, relaxed)
     return IcpResult(t_best, corrs, it)
 
@@ -89,7 +95,7 @@ def tight_polish(model: CompiledModel, scene, tangent_mask, consumed, t0: torch.
                  negative_scores: bool = False, point_to_plane: bool = False,
                  samples_on_all: bool = True, orientation_weight: bool = False,
                  anneal: float = 1.0, edges_only: bool = False,
-                 point_to_line_at_floor: bool = False) -> torch.Tensor:
+                 point_to_line_at_floor: bool = False, group=None) -> torch.Tensor:
     """Fitting steps at the unrelaxed gate with exact (LUT-seeded) corrs.
 
     Step i runs at dist_thres * max(anneal**i, 1/16); ``orientation_weight``
@@ -101,7 +107,8 @@ def tight_polish(model: CompiledModel, scene, tangent_mask, consumed, t0: torch.
     the 1/16 floor, with the hybrid Gauss-Newton step
     (``gauss_newton_pose_step``), composed as ``upd @ t``.  A step with fewer
     than 3 corrs keeps the pose.  Changes only the reported transform, never
-    which matches are accepted.  t0 [F, 4, 4] -> [F, 4, 4].
+    which matches are accepted.  t0 [F, 4, 4] -> [F, 4, 4].  ``group``: as in
+    ``icp_refine``.
     """
     if edges_only:
         tangent_mask = torch.linalg.vector_norm(scene.tangent, dim=-1) > 0.7
@@ -113,11 +120,15 @@ def tight_polish(model: CompiledModel, scene, tangent_mask, consumed, t0: torch.
         thres = np.float32(dist_thres) * np.float32(factor)
         corrs = finish_find(model, scene, tangent_mask, consumed, t, float(thres), exact=True,
                             weighted_distance=weighted_distance,
-                            negative_scores=negative_scores, samples_on_all=samples_on_all)
+                            negative_scores=negative_scores, samples_on_all=samples_on_all,
+                            group=group)
         w = corrs.valid.to(torch.float32)
         if edges_only:
             we = w * raw_edges
-            w = torch.where(we.sum(-1, keepdim=True) >= 12.0, we, w)
+            cnt_e = we.sum(-1, keepdim=True)
+            if sharded(group):
+                cnt_e = psum(cnt_e, *group)
+            w = torch.where(cnt_e >= 12.0, we, w)
         midx = corrs.model_idx
         if orientation_weight:
             ref = torch.where(tangent_mask[..., None], scene.tangent, scene.normal)
@@ -133,9 +144,9 @@ def tight_polish(model: CompiledModel, scene, tangent_mask, consumed, t0: torch.
             m_dir = m_dir / torch.clamp(torch.linalg.vector_norm(m_dir, dim=-1, keepdim=True),
                                         min=1e-12)
             upd = gauss_newton_pose_step(transform_points(t, scene.xyz), model.cloud.xyz[midx],
-                                         m_dir, is_edge, w)
+                                         m_dir, is_edge, w, group=group)
             t_new = upd @ t
         else:
-            t_new = weighted_kabsch(scene.xyz, model.cloud.xyz[midx], w)
+            t_new = weighted_kabsch(scene.xyz, model.cloud.xyz[midx], w, group=group)
         t = _select(corrs.count >= 3, t_new, t)
     return t

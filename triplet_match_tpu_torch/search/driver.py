@@ -15,13 +15,16 @@ Each round scores a whole hypothesis batch ([B1, B2, Q] poses) at once; the
 only sequential state is the mask update between rounds.  A dense scene
 switches to the fog-density route (``fog_policy``): exact ranking, a wider
 funnel with a prescreen, edge-anchored ranking and polish, and a join over
-per-finalist candidate subsets.  The multi-device meshes are not ported:
-``mesh=`` raises ``NotImplementedError``.
+per-finalist candidate subsets.  Under a ``mesh=`` (a ``DeviceMesh``, one
+process per rank) the rounds run hypothesis-parallel (``parallel/search.py``)
+or with the scene sharded as well (``parallel/search2d.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 import time
 from typing import NamedTuple
@@ -48,6 +51,16 @@ from triplet_match_tpu_torch.ops.curvature import (
     principal_curvatures,
 )
 from triplet_match_tpu_torch.ops.knn import radius_sample
+from triplet_match_tpu_torch.parallel.mesh import (
+    all_gather,
+    broadcast_first,
+    check_mesh,
+    flat_rank,
+    group_extent,
+    pmax,
+    psum,
+    sharded,
+)
 from triplet_match_tpu_torch.refine.icp import icp_refine, tight_polish
 from triplet_match_tpu_torch.search import score_kernel as sk
 from triplet_match_tpu_torch.search.sampling import (
@@ -57,10 +70,7 @@ from triplet_match_tpu_torch.search.sampling import (
     sample_firsts,
     sample_seconds,
 )
-from triplet_match_tpu_torch.search.score import finish_find, normalize_score
-
-_MESH = "the mesh-sharded rounds (parallel/) are not ported yet (ROADMAP queue A, A12)"
-
+from triplet_match_tpu_torch.search.score import _score_points, finish_find, normalize_score
 
 @dataclasses.dataclass(frozen=True)
 class ScenePrep:
@@ -79,13 +89,33 @@ def _prepare_scene_whole(cloud: cl.PointCloud, policy: SearchPolicy) -> ScenePre
     return ScenePrep(cloud=cloud, tangent_mask=tm, n_edge=tm.sum())
 
 
+def _mesh_tiles(tile, starts: list, n: int, chunk: int, mesh, device) -> torch.Tensor:
+    """``torch.cat([tile(s) for s in starts])`` with the tiles dealt to the
+    ranks of ``mesh`` in contiguous runs (the same tiles as one device, so the
+    same values) and all-gathered back in order."""
+    ndev = mesh.size()
+    per = -(-len(starts) // ndev)
+    lengths = [sum(min(chunk, n - s) for s in starts[r * per:(r + 1) * per])
+               for r in range(ndev)]
+    me = flat_rank(mesh)
+    mine = [tile(s) for s in starts[me * per:(me + 1) * per]]
+    out = torch.zeros(per * chunk, dtype=torch.float32, device=device)
+    if mine:
+        local = torch.cat(mine)
+        out[:local.numel()] = local
+    parts = all_gather(out[None], mesh, mesh.mesh_dim_names)
+    return torch.cat([parts[r, :lengths[r]] for r in range(ndev)])
+
+
 def _prepare_scene_grid(cloud: cl.PointCloud, *, policy: SearchPolicy, chunk: int = 4096,
-                        cap: int = 64) -> ScenePrep:
+                        cap: int = 64, mesh=None) -> ScenePrep:
     """Grid-bucketed edge classification for large scenes.
 
     Curvature is evaluated only for tangent-bearing points (the edge mask is
     ``tnorm > 0.7 AND ratio < 0.2``, impl/scene.hpp:50), with neighbours from
-    a 27-cell grid stencil sized for that population.
+    a 27-cell grid stencil sized for that population.  With ``mesh`` the query
+    tiles are dealt to every rank of the mesh and the ratios all-gathered, so
+    every rank holds the same mask (``_mesh_tiles``).
     """
     from triplet_match_tpu_torch.ops import gridnn
 
@@ -97,14 +127,20 @@ def _prepare_scene_grid(cloud: cl.PointCloud, *, policy: SearchPolicy, chunk: in
     if qidx.numel():
         cell = gridnn.estimate_knn_radius(cloud.xyz, cloud.valid, policy.curvature_k, focus=tb)
         grid = gridnn.build_grid(cloud.xyz, cloud.valid, cell)
-        ratios = []
-        for s in range(0, qidx.numel(), chunk):
+
+        def tile(s):
             q = qidx[s:s + chunk]
             idx, mask = gridnn.grid_neighbors(grid, cloud.xyz, cloud.xyz[q],
                                               policy.curvature_k, cap=cap)
-            c = curvature_from_neighbors(cloud.normal[q], cloud.normal[idx], mask)
-            ratios.append(curvature_ratio(c))
-        tm[qidx] = torch.cat(ratios) < policy.curvature_ratio_threshold
+            return curvature_ratio(curvature_from_neighbors(cloud.normal[q], cloud.normal[idx],
+                                                            mask))
+
+        starts = list(range(0, qidx.numel(), chunk))
+        if mesh is None:
+            ratios = torch.cat([tile(s) for s in starts])
+        else:
+            ratios = _mesh_tiles(tile, starts, qidx.numel(), chunk, mesh, cloud.device)
+        tm[qidx] = ratios < policy.curvature_ratio_threshold
     tm = tm & cloud.valid
     return ScenePrep(cloud=cloud, tangent_mask=tm, n_edge=tm.sum())
 
@@ -114,10 +150,14 @@ def prepare_scene(cloud: cl.PointCloud, policy: SearchPolicy = DEFAULT_POLICY, *
     """Per-scene preprocessing (impl/scene.hpp:41-58) on the cloud's device.
 
     Scenes above ``grid_threshold`` points take the grid-bucketed pass,
-    smaller ones the brute-force pass over the whole cloud.
+    smaller ones the brute-force pass over the whole cloud.  ``mesh``: a
+    ``DeviceMesh`` covering every rank; every rank passes the full cloud, the
+    grid pass's query tiles are shared out over the ranks, and every rank
+    gets the whole (replicated) preparation back, the same as one device's.
     """
     if mesh is not None:
-        raise NotImplementedError(_MESH)
+        check_mesh(mesh)
+        return _prepare_scene_grid(cloud, policy=policy, mesh=mesh)
     if cloud.capacity <= grid_threshold:
         return _prepare_scene_whole(cloud, policy)
     return _prepare_scene_grid(cloud, policy=policy)
@@ -143,6 +183,59 @@ def _f32(x) -> np.float32:
     return np.float32(float(x))
 
 
+def pose_hypotheses(model: CompiledModel, p0, t0, p1, t1, pair_valid, *,
+                    discretization: DiscretizationParams, sample_params: SampleParams,
+                    policy: SearchPolicy):
+    """Pair gates -> features -> model query -> pose hypotheses
+    (impl/scene.hpp:299-319) for firsts (p0, t0 [B1, 1, 3]) and their seconds
+    (p1, t1 [B1, B2, 3], ``pair_valid`` [B1, B2]).  Returns (ts [B1, B2, Q, 4, 4],
+    hyp_ok [B1, B2, Q])."""
+    b1, b2 = p1.shape[0], p1.shape[1]
+    qcap = policy.query_cap
+    lower = model.diameter * sample_params.min_diameter_factor
+    upper = model.diameter * sample_params.max_diameter_factor
+    gates = pf.pair_gates(p0, p1, t0, lower, upper, policy.pair_parallel_epsilon)
+    feats = pf.pair_feature(p0, p1, t0, t1)
+    pair_ok = pair_valid & gates & pf.feature_valid(feats, model.bounds_min, model.bounds_max)
+
+    mpairs, mvalid = query_pairs(model, feats, discretization, qcap, limit=policy.query_limit)
+    hyp_ok = pair_ok[..., None] & mvalid  # [B1, B2, Q]
+    shape = (b1, b2, qcap, 3)
+    ts = base_transform(p0[:, :, None].expand(shape), p1[:, :, None].expand(shape),
+                        t0[:, :, None].expand(shape), model.cloud.xyz[mpairs[..., 0]],
+                        model.cloud.xyz[mpairs[..., 1]], model.cloud.tangent[mpairs[..., 0]])
+    if sample_params.force_up:
+        hyp_ok = hyp_ok & ((1.0 - ts[..., 2, 2]).abs() <= 0.01)
+    return ts, hyp_ok
+
+
+# (hypothesis, neighbour) pairs the voxel-LUT ranking scores in one batch
+_LUT_SCORE_ELEMS = 1 << 22
+
+
+def _lut_scores(model, prep, consumed, ts, hyp_ok, nbr_idx, nbr_in_r, thres, policy):
+    """Rank every hypothesis by the voxel-LUT scorer over its first's
+    neighbourhood (the JAX package's ``jnp`` route, ``_score_points`` per
+    first): [B1, H] poses and masks -> [B1 * H] scores, ``-1.0`` (``-1e12``
+    under ``negative_scores``) where a hypothesis is invalid.  Firsts are
+    scored in batches of at most ``_LUT_SCORE_ELEMS`` pairs."""
+    b1, h = hyp_ok.shape
+    ks = nbr_idx.shape[1]
+    invalid = -1.0e12 if policy.negative_scores else -1.0
+    step = max(1, _LUT_SCORE_ELEMS // max(h * ks, 1))
+    out = []
+    for s in range(0, b1, step):
+        e = min(s + step, b1)
+        idx = nbr_idx[s:e, None, :].expand(e - s, h, ks)
+        iv = nbr_in_r[s:e, None, :].expand(e - s, h, ks)
+        sc, _, _, _ = _score_points(model, prep.cloud, prep.tangent_mask, consumed, ts[s:e], idx,
+                                    iv, thres, weighted_distance=policy.weighted_distance,
+                                    negative_scores=policy.negative_scores,
+                                    samples_on_all=_rank_on_all(policy))
+        out.append(torch.where(hyp_ok[s:e], sc, invalid))
+    return torch.cat(out).reshape(-1)
+
+
 def hypothesize_and_score(model: CompiledModel, prep: ScenePrep, consumed: torch.Tensor,
                           fp_mask: torch.Tensor, draws: RoundDraws, dist_thres, mpack, *,
                           discretization: DiscretizationParams, sample_params: SampleParams,
@@ -150,6 +243,8 @@ def hypothesize_and_score(model: CompiledModel, prep: ScenePrep, consumed: torch
     """Sample pairs, query the model, build and rank pose hypotheses
     (``find_in_subset``, impl/scene.hpp:242-367).
 
+    Ranks through the kernels (``score_kernel.rank_groups``) with a model pack
+    ``mpack``, and through the voxel-LUT scorer (``_lut_scores``) without one.
     Returns (ts_flat [H, 4, 4], scores [H], first_idx [B1], first_valid [B1],
     n_hypotheses), a pure function of ``draws``.
     """
@@ -157,8 +252,6 @@ def hypothesize_and_score(model: CompiledModel, prep: ScenePrep, consumed: torch
     b1, b2 = policy.num_first_samples, policy.num_second_samples
     qcap = policy.query_cap
     ks = policy.score_neighbors
-    lower = model.diameter * sample_params.min_diameter_factor
-    upper = model.diameter * sample_params.max_diameter_factor
     thres = _f32(dist_thres) * _f32(model.resolution)
 
     eligible_first = prep.tangent_mask & ~consumed & ~fp_mask & cloud.valid
@@ -177,28 +270,19 @@ def hypothesize_and_score(model: CompiledModel, prep: ScenePrep, consumed: torch
                                         block=blk)
     seconds = sample_seconds(draws.gumbel, firsts, pool_idx, pool_in_r, second_eligible, b2)
 
-    p0 = q[:, None, :]
-    t0 = cloud.tangent[firsts.idx][:, None, :]
-    p1 = cloud.xyz[seconds.idx]
-    t1 = cloud.tangent[seconds.idx]
-    gates = pf.pair_gates(p0, p1, t0, lower, upper, policy.pair_parallel_epsilon)
-    feats = pf.pair_feature(p0, p1, t0, t1)
-    pair_ok = seconds.valid & gates & pf.feature_valid(feats, model.bounds_min, model.bounds_max)
-
-    mpairs, mvalid = query_pairs(model, feats, discretization, qcap, limit=policy.query_limit)
-    hyp_ok = pair_ok[..., None] & mvalid  # [B1, B2, Q]
-    shape = (b1, b2, qcap, 3)
-    ts = base_transform(p0[:, :, None].expand(shape), p1[:, :, None].expand(shape),
-                        t0[:, :, None].expand(shape), model.cloud.xyz[mpairs[..., 0]],
-                        model.cloud.xyz[mpairs[..., 1]], model.cloud.tangent[mpairs[..., 0]])
-    if sample_params.force_up:
-        hyp_ok = hyp_ok & ((1.0 - ts[..., 2, 2]).abs() <= 0.01)
-
-    groups = sk.pack_groups(cloud, prep.tangent_mask, consumed, nbr_idx, nbr_in_r,
-                            samples_on_all=_rank_on_all(policy))
-    rows = sk.poses_to_rows(ts.reshape(b1, b2 * qcap, 4, 4))
-    scores = sk.rank_groups(mpack, groups, rows, float(thres * thres),
-                            hyp_ok.reshape(b1, b2 * qcap), policy).reshape(-1)
+    ts, hyp_ok = pose_hypotheses(
+        model, q[:, None, :], cloud.tangent[firsts.idx][:, None, :], cloud.xyz[seconds.idx],
+        cloud.tangent[seconds.idx], seconds.valid, discretization=discretization,
+        sample_params=sample_params, policy=policy)
+    ts_g, ok_g = ts.reshape(b1, b2 * qcap, 4, 4), hyp_ok.reshape(b1, b2 * qcap)
+    if mpack is None:
+        scores = _lut_scores(model, prep, consumed, ts_g, ok_g, nbr_idx, nbr_in_r, float(thres),
+                             policy)
+    else:
+        groups = sk.pack_groups(cloud, prep.tangent_mask, consumed, nbr_idx, nbr_in_r,
+                                samples_on_all=_rank_on_all(policy))
+        scores = sk.rank_groups(mpack, groups, sk.poses_to_rows(ts_g), float(thres * thres), ok_g,
+                                policy).reshape(-1)
     return ts.reshape(-1, 4, 4), scores, firsts.idx, firsts.valid, hyp_ok.sum()
 
 
@@ -308,7 +392,8 @@ def _scatter_corrs(idx, idx_valid, sub_valid, sub_midx, n: int):
 
 
 def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_best, dist_thres,
-                      model_match_factor, *, policy: SearchPolicy, max_icp_iterations: int):
+                      model_match_factor, *, policy: SearchPolicy, max_icp_iterations: int,
+                      group=None):
     """Finalist prescreen + relaxed ICP + greedy acceptance + acceptance-gated
     tight polish.
 
@@ -320,8 +405,16 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
     its finalists through ``_finalist_map``.  Returns (t_fin, accept,
     new_corr, model_idx, counts, scores, consumed', join_overflow), the last
     the worst candidate overflow of the subset passes (0 when exact or off).
+
+    ``group``: a ``parallel.mesh.MeshAxis`` when ``cloud`` (and the masks) are
+    one shard of a scene sharded over it (the sp-sharded round).  Every count,
+    score and fit then sums over the shards, so the prescreen, the greedy
+    acceptance and the polish gate read the same values on every shard; the
+    per-point outputs stay shard-local, and the join overflow is the worst
+    over the shards.  The finalist chunks follow the global scene size.
     """
     n_scene = cloud.capacity
+    n_rows = n_scene * group_extent(group)
     cap = int(policy.join_subset_capacity or 0)
     use_subset = 0 < cap < n_scene
     join_overflow = torch.zeros((), dtype=torch.int64, device=t_best.device)
@@ -336,7 +429,7 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
             return finish_find(model, sc, tm, co, t, 2.0 * dist_thres,
                                weighted_distance=policy.weighted_distance,
                                negative_scores=policy.negative_scores,
-                               samples_on_all=_rank_on_all(policy)).count
+                               samples_on_all=_rank_on_all(policy), group=group).count
 
         if use_subset:
             sub, stm, scons, _, _, n_cand = subset(t_best)
@@ -344,7 +437,7 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
             join_overflow = torch.maximum(join_overflow, n_cand.max() - cap)
         else:
             pre = _finalist_map(lambda t: pre_count(t, cloud, tangent_mask, consumed), t_best,
-                                n_scene)
+                                n_rows)
         # ties break toward the higher-ranked hypothesis, as lax.top_k does
         t_best = t_best[torch.sort(pre, descending=True, stable=True)[1][:keep]]
 
@@ -355,7 +448,7 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
                           tight_iterations=0, weighted_distance=policy.weighted_distance,
                           negative_scores=policy.negative_scores,
                           point_to_plane=policy.icp_point_to_plane,
-                          samples_on_all=policy.samples_on_all)
+                          samples_on_all=policy.samples_on_all, group=group)
 
     if use_subset:
         sub, stm, scons, s_idx, s_ivalid, n_cand = subset(t_best)
@@ -364,7 +457,7 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
         corr_valid, corr_midx = _scatter_corrs(s_idx, s_ivalid, res.corrs.valid,
                                                res.corrs.model_idx, n_scene)
     else:
-        res = _finalist_map(lambda t: icp(t, cloud, tangent_mask, consumed), t_best, n_scene)
+        res = _finalist_map(lambda t: icp(t, cloud, tangent_mask, consumed), t_best, n_rows)
         corr_valid, corr_midx = res.corrs.valid, res.corrs.model_idx
     t_fin, fin_counts, fin_scores = res.transform, res.corrs.count, res.corrs.score
 
@@ -378,7 +471,11 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
     for f in order.tolist():
         cv = corr_valid[f]
         new = cv & ~used
-        ok = ((new & tangent_mask).sum() >= min_pts) & (new.sum() >= min_pts_all)
+        if not sharded(group):
+            ok = ((new & tangent_mask).sum() >= min_pts) & (new.sum() >= min_pts_all)
+        else:  # one collective for both counts
+            counts = psum(torch.stack([(new & tangent_mask).sum(), new.sum()]), *group)
+            ok = (counts[0] >= min_pts) & (counts[1] >= min_pts_all)
         used = torch.where(ok, used | cv, used)
         acc_ord.append(ok)
         new_ord.append(new)
@@ -390,20 +487,23 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
     if max_icp_iterations > 0 and bool(accept.any()):
         t_fin, new_corr, corr_midx, fin_counts, fin_scores, consumed_next = polish_accepted(
             model, cloud, tangent_mask, consumed, dist_thres, policy, t_fin, accept, order,
-            acc_ord, inv_order)
+            acc_ord, inv_order, group=group)
+    if sharded(group):
+        join_overflow = pmax(join_overflow, *group)  # per-shard candidate counts differ
     return (t_fin, accept, new_corr, corr_midx, fin_counts, fin_scores, consumed_next,
             join_overflow)
 
 
 def polish_accepted(model, cloud, tangent_mask, consumed, dist_thres, policy, t_fin, accept,
-                    order, acc_ord, inv_order):
+                    order, acc_ord, inv_order, group=None):
     """Tight-polish every finalist of an accepting round, then re-derive the
     reported corrs, counts, scores and point claims at the polished poses
     (same order, frozen accept decisions).  The acceptance decision stays at
     the unpolished pose (impl/scene.hpp:193-237).  Under the subset join the
     polish runs on candidates at the relaxed-ICP poses and the claim pass on
-    candidates at the polished poses."""
+    candidates at the polished poses.  ``group``: as in ``accept_and_polish``."""
     n_scene = cloud.capacity
+    n_rows = n_scene * group_extent(group)
     cap = int(policy.join_subset_capacity or 0)
 
     def polish(t, sc, tm, co):
@@ -414,13 +514,13 @@ def polish_accepted(model, cloud, tangent_mask, consumed, dist_thres, policy, t_
             weighted_distance=policy.weighted_distance, negative_scores=policy.negative_scores,
             point_to_plane=policy.icp_point_to_plane,
             point_to_line_at_floor=bool(policy.tight_point_to_line),
-            samples_on_all=policy.samples_on_all)
+            samples_on_all=policy.samples_on_all, group=group)
 
     def claim_pass(t, sc, tm, co):
         return finish_find(model, sc, tm, co, t, 2.0 * dist_thres,
                            weighted_distance=policy.weighted_distance,
                            negative_scores=policy.negative_scores,
-                           samples_on_all=policy.samples_on_all)
+                           samples_on_all=policy.samples_on_all, group=group)
 
     if 0 < cap < n_scene:
         sub, stm, scons, _, _, _ = _candidate_subset(model, cloud, tangent_mask, consumed, t_fin,
@@ -432,9 +532,9 @@ def polish_accepted(model, cloud, tangent_mask, consumed, dist_thres, policy, t_
         corrs = _finalist_map(claim_pass, t_pol, cap, sub, stm, scons)
         corr_v, corr_m = _scatter_corrs(p_idx, p_ivalid, corrs.valid, corrs.model_idx, n_scene)
     else:
-        t_pol = _finalist_map(lambda t: polish(t, cloud, tangent_mask, consumed), t_fin, n_scene)
+        t_pol = _finalist_map(lambda t: polish(t, cloud, tangent_mask, consumed), t_fin, n_rows)
         corrs = _finalist_map(lambda t: claim_pass(t, cloud, tangent_mask, consumed), t_pol,
-                              n_scene)
+                              n_rows)
         corr_v, corr_m = corrs.valid, corrs.model_idx
     used = consumed
     new_ord = []
@@ -544,18 +644,22 @@ def adaptive_inner_bound(prep: ScenePrep, model: CompiledModel, policy: SearchPo
     return int(math.ceil(min(bound, ball_q)))
 
 
-def adaptive_policy(prep: ScenePrep, model: CompiledModel,
-                    policy: SearchPolicy) -> tuple[SearchPolicy, float | None]:
+def adaptive_policy(prep: ScenePrep, model: CompiledModel, policy: SearchPolicy,
+                    mesh=None) -> tuple[SearchPolicy, float | None]:
     """The policy a search of this scene runs, and the ball-population q95
     it was read from (None when no adaptive knob needs it).
 
     With ``adaptive_second_samples``, an inner bound above
     ``num_second_samples`` raises it to ``max_second_samples`` (the JAX
-    package's two-rung ladder), widening ``second_pool`` to match.
+    package's two-rung ladder), widening ``second_pool`` to match.  Under a
+    ``mesh`` every rank computes the q95 from the full prep and takes rank
+    0's value, so every rank runs the same policy.
     """
     ball_q = None
     if policy.adaptive_second_samples or policy.adaptive_fine_rescore:
         ball_q = ball_population_quantile(prep, model)
+        if mesh is not None:
+            ball_q = broadcast_first(ball_q, mesh)
     if policy.adaptive_second_samples:
         bound = adaptive_inner_bound(prep, model, policy, ball_q=ball_q)
         if bound > policy.num_second_samples:
@@ -620,6 +724,29 @@ class Match:
     cast_score: float | None = None
 
 
+def _round_backend(mesh, n: int):
+    """(round function, RANSAC chunks per round) of a search: the
+    single-device ``search_round``; a 1-axis mesh's ``search_round_dp``, one
+    chunk per rank; a 2- or 3-axis mesh's ``search_round_2d_prep``, one chunk
+    per (dcn, dp) coordinate, the scene sharded over the last axis."""
+    if mesh is None:
+        return search_round, 1
+    check_mesh(mesh)
+    names = mesh.mesh_dim_names
+    if len(names) >= 2:
+        from triplet_match_tpu_torch.parallel.search2d import search_round_2d_prep
+
+        sp_ext = mesh.size(len(names) - 1)
+        if n % sp_ext:
+            raise ValueError(f"scene capacity {n} not divisible by sp extent {sp_ext}; pad the "
+                             "cloud capacity (core.cloud.pad_capacity)")
+        return (functools.partial(search_round_2d_prep, mesh),
+                math.prod(mesh.size(i) for i in range(len(names) - 1)))
+    from triplet_match_tpu_torch.parallel.search import search_round_dp
+
+    return functools.partial(search_round_dp, mesh), mesh.size(0)
+
+
 def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: float | None = None,
              model_match_factor: float = 0.4, early_out_factor: float = 0.9,
              sample_params: SampleParams = DEFAULT_SAMPLE_PARAMS,
@@ -632,16 +759,31 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
     include/scene:47-48), on ``device`` (default: the model's).
 
     Phases run the adaptive RANSAC outer bound as rounds of
-    ``num_first_samples`` firsts (impl/scene.hpp:70-95, 131-141); a phase
-    without an accepted match ends the search, and ``early_out`` stops a
-    phase once a match reaches ``early_out_factor * possible_model`` corrs.
-    The rounds' random inputs come from ``generator`` (a CPU generator,
-    default seeded with ``seed``), so a seed gives the same search on every
-    device but not the JAX package's (threefry) samples.  Runs under
-    ``strict_fp32``.
+    ``num_first_samples`` firsts per RANSAC chunk (impl/scene.hpp:70-95,
+    131-141); a phase without an accepted match ends the search, and
+    ``early_out`` stops a phase once a match reaches ``early_out_factor *
+    possible_model`` corrs.  The rounds' random inputs come from
+    ``generator`` (a CPU generator, default seeded with ``seed``), so a seed
+    gives the same search on every device but not the JAX package's
+    (threefry) samples.  Runs under ``strict_fp32``.
 
-    When the ball population q95 exceeds ``fine_full_rescore_ratio *
-    score_neighbors`` the fog-density switch fires (``fog_policy``).
+    ``policy.scorer``: "auto" and "pallas" rank through the kernels; "jnp"
+    ranks through the voxel-LUT scorer (``_lut_scores``, no kernel, no fog
+    switch), as the JAX package does off the TPU.  When the ball population
+    q95 exceeds ``fine_full_rescore_ratio * score_neighbors`` the
+    fog-density switch fires (``fog_policy``).
+
+    ``mesh``: a ``DeviceMesh`` over every rank of the process group, each
+    rank a process that calls ``find_all`` with identical inputs.  A 1-axis
+    mesh runs hypothesis data parallelism (each rank is a RANSAC chunk,
+    ``parallel.search.search_round_dp``); a ("dp", "sp") mesh also shards
+    the scene over sp (``parallel.search2d.search_round_2d``; the capacity
+    must be divisible by the sp extent; always the kernels); a ("dcn", "dp",
+    "sp") mesh runs one chunk per (dcn, dp) pair with a hierarchical
+    finalist join.  Each round the host draws every chunk's ``RoundDraws``
+    from the one generator, in chunk order, and each rank takes its own, so
+    chunk 0 draws the single-device round's samples and a one-chunk mesh
+    repeats the single-device search.  Every rank returns the same matches.
 
     ``progress``: optional callable polled with the fraction of the current
     phase done, 0.0 at each phase's start and after every round (the
@@ -649,17 +791,16 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
     e.g. ``utils.progress.ProgressBar.poll``.
 
     ``LAST_SEARCH_STATS`` gets the JAX package's keys (without its
-    executable-cache and profiler entries) plus the launches of each ranking
-    kernel in this search: ``coarse_kernel_launches`` (B1),
+    executable-cache entry; ``round_ms_avg`` and ``profile`` from a
+    ``utils.timer.Profiler``) plus the launches of each ranking kernel in
+    this search (on this rank): ``coarse_kernel_launches`` (B1),
     ``exact_kernel_launches`` (B2), ``full_kernel_launches`` (B3) and
-    ``coarse_linear_kernel_launches`` (B4).  Raises ``NotImplementedError``
-    for ``mesh=`` and ``scorer="jnp"``.
+    ``coarse_linear_kernel_launches`` (B4).
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
-    if policy.scorer not in ("auto", "pallas"):
-        raise NotImplementedError(f"scorer={policy.scorer!r}: the port ranks through its "
-                                  "kernels only")
+    from triplet_match_tpu_torch.utils.timer import Profiler
+
+    if policy.scorer not in ("auto", "pallas", "jnp"):
+        raise ValueError(f"unknown scorer {policy.scorer!r}")
     device = torch.device(device) if device is not None else model.cloud.device
     if dist_thres is None:
         dist_thres = policy.corr_dist_factor
@@ -668,16 +809,23 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
                 "full_kernel_launches": sk.FULL_RANK,
                 "coarse_linear_kernel_launches": sk.COARSE_LINEAR_RANK}
     launches0 = {key: c.launches for key, c in counters.items()}
+    profiler = Profiler()
     with strict_fp32():
         if prep is None:
-            prep = prepare_scene(scene_cloud.to(device), policy)
+            prep = prepare_scene(scene_cloud.to(device), policy, mesh=mesh)
+        round_fn, n_chunks = _round_backend(mesh, prep.cloud.capacity)
+        # the 2-D round ranks through the kernels whatever the scorer
+        use_kernels = policy.scorer != "jnp" or (mesh is not None
+                                                 and len(mesh.mesh_dim_names) >= 2)
         stats = {"rounds": 0, "phases": 0, "hypotheses_scored": 0, "finalists": 0,
                  "accepted": 0, "join_overflow_max": 0}
 
-        policy, ball_q = adaptive_policy(prep, model, policy)
+        timed = policy.adaptive_second_samples or policy.adaptive_fine_rescore
+        with profiler.section("ball_quantile") if timed else contextlib.nullcontext():
+            policy, ball_q = adaptive_policy(prep, model, policy, mesh)
         stats["num_second_samples_effective"] = policy.num_second_samples
         stats["fine_rescore_full"] = False
-        if (policy.adaptive_fine_rescore and policy.two_phase_scoring
+        if (policy.adaptive_fine_rescore and use_kernels and policy.two_phase_scoring
                 and policy.two_phase_fine_coarse and ball_q is not None
                 and ball_q > policy.fine_full_rescore_ratio * policy.score_neighbors):
             policy, prep = fog_policy(policy, prep, model)
@@ -693,8 +841,10 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
             stats["finalist_funnel"] = int(policy.finalists)
         if ball_q is not None:
             stats["ball_population_q95"] = int(ball_q)
-        mpack = sk.pack_model_cached(model, coarse_points=policy.coarse_model_points,
-                                     fine_points=policy.fine_model_points)
+        mpack = None
+        if use_kernels:
+            mpack = sk.pack_model_cached(model, coarse_points=policy.coarse_model_points,
+                                         fine_points=policy.fine_model_points)
 
         n = prep.cloud.capacity
         consumed = torch.zeros(n, dtype=torch.bool, device=device)
@@ -708,15 +858,15 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
             possible_model = int(((torch.linalg.vector_norm(model.cloud.tangent, dim=-1) > 0.7)
                                   & model.cloud.valid).sum())
         early_out_threshold = early_out_factor * possible_model
-        round_s: list[float] = []
 
         def publish():
             LAST_SEARCH_STATS.clear()
             LAST_SEARCH_STATS.update(stats)
             LAST_SEARCH_STATS["rejection_rate"] = (1.0 - stats["accepted"]
                                                    / max(stats["finalists"], 1))
-            if round_s:
-                LAST_SEARCH_STATS["round_ms_avg"] = 1000.0 * float(np.mean(round_s))
+            if "round" in profiler.phases:
+                LAST_SEARCH_STATS["round_ms_avg"] = profiler.phases["round"].value
+                LAST_SEARCH_STATS["profile"] = profiler.report()
             for key, c in counters.items():
                 LAST_SEARCH_STATS[key] = c.launches - launches0[key]
 
@@ -727,7 +877,7 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
             outer_bound = adaptive_outer_bound(n_model, n_left, n_scene_edge, policy)
             if outer_bound == 0:
                 break
-            phase_rounds = max(1, -(-outer_bound // policy.num_first_samples))
+            phase_rounds = max(1, -(-outer_bound // (policy.num_first_samples * n_chunks)))
             stats["phases"] += 1
             phase_accepted = phase_early_out = False
             if progress is not None:
@@ -735,14 +885,17 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
             for round_in_phase in range(phase_rounds):
                 if rnd >= policy.max_rounds:
                     break
-                draws = draw_round(gen, policy.num_first_samples, policy.second_pool, device)
-                t0 = time.perf_counter()
-                res, consumed, fp = search_round(
-                    model, prep, consumed, fp, draws, dist_thres, model_match_factor, mpack,
-                    discretization=discretization, sample_params=sample_params, policy=policy,
-                    max_icp_iterations=max_icp_iterations)
-                accept = res.accept.cpu().numpy()
-                round_s.append(time.perf_counter() - t0)
+                draws = [draw_round(gen, policy.num_first_samples, policy.second_pool, device)
+                         for _ in range(n_chunks)]
+                # the accept flags' copy to the host waits for the round: the
+                # section adds no sync of its own
+                with profiler.section("round"):
+                    res, consumed, fp = round_fn(
+                        model, prep, consumed, fp, draws[0] if mesh is None else draws,
+                        dist_thres, model_match_factor, mpack, discretization=discretization,
+                        sample_params=sample_params, policy=policy,
+                        max_icp_iterations=max_icp_iterations)
+                    accept = res.accept.cpu().numpy()
                 rnd += 1
                 if progress is not None:
                     progress((round_in_phase + 1) / phase_rounds)
@@ -808,15 +961,14 @@ def find_all_multi(models: list[CompiledModel], scene_cloud: cl.PointCloud, *,
     ``LAST_SEARCH_STATS`` (the four ``*_kernel_launches`` included) plus
     ``search_s`` and, with origins, ``raycast_s`` and ``cast_survivors`` (the
     cone cull's survivors per cast, origin by origin for each match).
-    Raises ``NotImplementedError`` for ``mesh=``.
+    ``mesh`` goes to the scene preparation and to every model's search
+    (each match is raycast on every rank, from the replicated matches).
     """
     from triplet_match_tpu_torch.verify.raycast import cast_score_matched, cast_visibility_multi
 
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
     if prep is None:
         with strict_fp32():
-            prep = prepare_scene(scene_cloud.to(models[0].cloud.device), policy)
+            prep = prepare_scene(scene_cloud.to(models[0].cloud.device), policy, mesh=mesh)
     consumed: torch.Tensor | None = None
     all_matches: list[list[Match]] = []
     LAST_MULTI_SEARCH_STATS.clear()
@@ -827,7 +979,7 @@ def find_all_multi(models: list[CompiledModel], scene_cloud: cl.PointCloud, *,
                                                          valid=prep.cloud.valid & ~consumed),
                                tangent_mask=prep.tangent_mask & ~consumed, n_edge=prep.n_edge)
         t0 = time.perf_counter()
-        matches = find_all(model, scene_cloud, policy=policy, prep=prep_m, **kwargs)
+        matches = find_all(model, scene_cloud, policy=policy, prep=prep_m, mesh=mesh, **kwargs)
         mstats = dict(LAST_SEARCH_STATS)
         mstats["search_s"] = time.perf_counter() - t0
         LAST_MULTI_SEARCH_STATS.append(mstats)

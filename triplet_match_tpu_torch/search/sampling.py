@@ -18,14 +18,8 @@ from typing import NamedTuple
 
 import torch
 
-_MASK32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for x in [0, 2^32) held in int64, without int64 overflow."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _MASK32
+from triplet_match_tpu_torch.features.discretize import MASK32 as _MASK32
+from triplet_match_tpu_torch.features.discretize import mul32 as _mul32
 
 
 def _fmix(x: torch.Tensor) -> torch.Tensor:

@@ -4,16 +4,20 @@
 Push scene points through a pose, look up the nearest model point in the voxel
 LUT, gate on distance (thres = dist_thres * model resolution) and tangent/
 normal kind agreement, and accumulate |ref . ref_n| orientation scores plus
-correspondences.  ICP, the acceptance pass and the polish read this scorer.
+correspondences.  ICP, the acceptance pass and the polish read this scorer,
+and ``score_hypotheses`` ranks hypotheses through it on the voxel-LUT route
+(``scorer="jnp"``, the JAX package's plain ``jnp`` scorer; no kernel).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from triplet_match_tpu_torch.index.model import CompiledModel, voxel_query, voxel_query_exact
+from triplet_match_tpu_torch.parallel.mesh import psum, sharded
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
@@ -64,6 +68,42 @@ def _score_points(model: CompiledModel, scene, tangent_mask, consumed, ts, idx, 
     return score, ok.sum(-1), ok, midx
 
 
+class ScoreResult(NamedTuple):
+    score: torch.Tensor  # [...] float32, signed orientation score (unnormalized)
+    count: torch.Tensor  # [...] int64, number of correspondences
+
+
+def score_hypotheses(model: CompiledModel, scene, tangent_mask, consumed, ts, nbr_idx,
+                     nbr_valid, dist_thres, *, chunk: int = 2048) -> ScoreResult:
+    """Score H pose hypotheses over their neighbour sets, ``chunk`` poses at a
+    time (peak memory ``chunk * K``).
+
+    ts [H, 4, 4] scene -> model poses; nbr_idx / nbr_valid [H, K] scene-point
+    neighbourhoods (the radius-search subset, impl/scene.hpp:273); dist_thres
+    in multiples of the model resolution (impl/scene.hpp:413).  Returns
+    ScoreResult([H] score, [H] count).
+    """
+    thres = float(np.float32(dist_thres) * np.float32(float(model.resolution)))
+    scores, counts = [], []
+    for s in range(0, ts.shape[0], chunk):
+        sc, c, _, _ = _score_points(model, scene, tangent_mask, consumed, ts[s:s + chunk],
+                                    nbr_idx[s:s + chunk], nbr_valid[s:s + chunk], thres)
+        scores.append(sc)
+        counts.append(c)
+    return ScoreResult(torch.cat(scores), torch.cat(counts))
+
+
+def get_bench_scorer(*, chunk: int = 8192):
+    """The scoring step of the JAX package's bench and kernel parity tests:
+    ``step(model, cloud, tangent_mask, consumed, ts, nbr_idx, nbr_valid,
+    dist_thres)`` -> ScoreResult."""
+    def step(model, cloud, tangent_mask, consumed, ts, nbr_idx, nbr_valid, dist_thres):
+        return score_hypotheses(model, cloud, tangent_mask, consumed, ts, nbr_idx, nbr_valid,
+                                dist_thres, chunk=chunk)
+
+    return step
+
+
 class DenseCorrs(NamedTuple):
     """Dense correspondence set of a full-cloud scoring pass."""
 
@@ -75,10 +115,16 @@ class DenseCorrs(NamedTuple):
 
 def finish_find(model: CompiledModel, scene, tangent_mask, consumed, t, dist_thres,
                 exact: bool = False, weighted_distance: bool = False,
-                negative_scores: bool = False, samples_on_all: bool = True) -> DenseCorrs:
+                negative_scores: bool = False, samples_on_all: bool = True,
+                group=None) -> DenseCorrs:
     """Score poses ``t`` [..., 4, 4] against ALL scene points (``scene::finish_find``,
     impl/scene.hpp:100-106); ``dist_thres`` is a float or a [...] tensor.
-    ``exact=True`` takes LUT-seeded exact nearest neighbours."""
+    ``exact=True`` takes LUT-seeded exact nearest neighbours.
+
+    ``group``: a ``parallel.mesh.MeshAxis`` when ``scene`` is one shard of a
+    scene sharded over it; the per-point outputs stay shard-local and score
+    and count are summed over the shards (one collective, in float64: the
+    counts stay exact)."""
     thres = torch.as_tensor(dist_thres, dtype=torch.float32, device=t.device) * model.resolution
     if thres.dim():
         thres = thres[..., None]
@@ -86,6 +132,9 @@ def finish_find(model: CompiledModel, scene, tangent_mask, consumed, t, dist_thr
         model, scene, tangent_mask, consumed, t, None, None, thres, exact=exact,
         weighted_distance=weighted_distance, negative_scores=negative_scores,
         samples_on_all=samples_on_all)
+    if sharded(group):
+        both = psum(torch.stack([score.double(), count.double()], -1), *group)
+        score, count = both[..., 0].float(), both[..., 1].to(count.dtype)
     return DenseCorrs(model_idx=midx, valid=ok, score=score, count=count)
 
 
