@@ -97,7 +97,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               distance in (-1e-5, half a voxel diagonal)); the same numbers
               printed for the recall box model; then compile_model of the graded
               20000-point lattice model, whose grid takes the jump-flood
-              route; B2 against its plain version at the fog route's phase 1
+              route, and again with ``exact_lut``: one launch of
+              csrc/nearest_grid.cu against knn.nearest_grid_plain on the
+              512^3 grid (distances within 1e-6, >= 99.9 % of indices
+              equal; its seconds and bound printed); B2 against its plain
+              version at the fog route's phase 1
               and phase 2 shapes on its 131k recall scene (seed 0), with the
               lattice's all-edge pack (an empty surface block); find_all on
               that scene, first and warm, within the contract, the fog switch
@@ -793,6 +797,69 @@ def _check_jfa(tag, model, smi, rule: bool) -> dict:
         raise AssertionError(f"[jfa] {tag}: the jump-flood LUT breaks the distance rule")
     return {"seconds": secs, "equal_share": equal, "excess_max": float(excess.max())}
 
+
+
+def _check_exact_lut(arrays, flood_model, disc, sample, policy, dev, smi) -> None:
+    """compile_model of ``arrays`` with ``exact_lut``: one launch of
+    csrc/nearest_grid.cu, timed, against its plain version
+    (``knn.nearest_grid_plain``, the same sample points in blocks on the card):
+    every voxel's point as near as the plain one's within 1e-6 (both taken
+    again in float64), at least 99.9 % of indices equal (the rest ties within
+    float32 rounding).  Prints the kernel's seconds and its bound (3 fp32
+    instructions a (voxel, point) pair) beside the jump flood's excess."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from triplet_match_tpu_torch.core.cloud import PointCloud
+    from triplet_match_tpu_torch.index.model import compile_model
+    from triplet_match_tpu_torch.ops import knn
+
+    cloud = PointCloud.from_arrays(*arrays, device=dev)
+    knn.NEAREST_GRID.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact = compile_model(cloud, disc, sample, dataclasses.replace(policy, exact_lut=True))
+    torch.cuda.synchronize()
+    t_compile = time.perf_counter() - t0
+    if knn.NEAREST_GRID.launches != 1:
+        raise AssertionError(f"[lut] nearest_grid launched {knn.NEAREST_GRID.launches} times")
+    m = exact.cloud
+    t_kernel = _cuda_ms(lambda: knn.nearest_grid(m.xyz, m.valid, exact.to_voxel,
+                                                 exact.extents), 2) / 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = knn.nearest_grid_plain(m.xyz, m.valid, exact.to_voxel, exact.extents)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    inv = torch.linalg.inv(exact.to_voxel.double())
+    xyz = m.xyz.double()
+    gap = equal = 0.0
+    flood_excess = 0.0
+    for i0 in range(0, exact.extents[0], 32):  # 32 x-slabs of the grid at a time
+        ijk = torch.stack(torch.meshgrid(
+            torch.arange(i0, min(i0 + 32, exact.extents[0]), device=dev, dtype=torch.float64),
+            *(torch.arange(e, device=dev, dtype=torch.float64) for e in exact.extents[1:]),
+            indexing="ij"), -1).reshape(-1, 3)
+        c = ijk @ inv[:3, :3].T + inv[:3, 3]
+        got, want = exact.lut[i0:i0 + 32].reshape(-1), plain[i0:i0 + 32].reshape(-1)
+        d_got = torch.linalg.vector_norm(c - xyz[got], dim=1)
+        d_want = torch.linalg.vector_norm(c - xyz[want], dim=1)
+        d_flood = torch.linalg.vector_norm(c - xyz[flood_model.lut[i0:i0 + 32].reshape(-1)], dim=1)
+        gap = max(gap, float((d_got - d_want).abs().max()))
+        flood_excess = max(flood_excess, float((d_flood - d_got).max()))
+        equal += float((got == want).double().sum())
+    n_vox = int(np.prod(exact.extents))
+    equal /= n_vox
+    bound = 3.0 * n_vox * int(m.valid.sum()) / FP32_INSTR_PER_S
+    _log(f"[lut] exact_lut grid {exact.extents} x {int(m.valid.sum())} points: compile_model "
+         f"{t_compile:.3f} s, nearest_grid {t_kernel:.4f} s (bound {bound:.4f} s, "
+         f"{100 * bound / t_kernel:.1f} %), plain {t_plain:.3f} s | equal to the plain "
+         f"{100 * equal:.4f} %, distance gap {gap:.3g} | the jump flood's worst excess "
+         f"{1e3 * flood_excess:.4f} mm | {smi}")
+    if not (gap <= 1e-6 and equal >= 0.999):
+        raise AssertionError("[lut] the exact LUT kernel differs from its plain version")
 
 
 def _pose_gap(a, b) -> tuple[float, float]:
@@ -1515,6 +1582,7 @@ def main() -> int:
          f"{int(lat_model.n_edge)} pairs {int(lat_model.pair_count)} | {smi}")
     if int(np.prod(lat_model.extents)) <= LUT_JFA_THRESHOLD:
         raise AssertionError("the lattice model's grid did not take the jump-flood route")
+    _check_exact_lut(lat, lat_model, disc, sample, policy, dev, smi)
     scene_lat, t_gt_lat = recall_scene(131072, seed=0, arrays=lat, device=dev)
     walls["jfa"] = time.perf_counter() - t0
     # B2 at the lattice's fog shapes: an all-edge pack, so an empty surface block

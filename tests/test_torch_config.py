@@ -11,12 +11,20 @@ from triplet_match_tpu_torch import config as tcfg
 REPO = Path(__file__).resolve().parent.parent
 
 
+# the port's own fields, with their defaults: each leaves the JAX package's behaviour
+PORT_ONLY = {"SearchPolicy": {"exact_lut": False, "resolve_symmetry": False}}
+
+
 def test_config_defaults_equal_reference():
     for name in ("SampleParams", "DiscretizationParams", "SearchPolicy"):
         ref = dataclasses.asdict(getattr(jcfg, name)())
         port = dataclasses.asdict(getattr(tcfg, name)())
+        own = PORT_ONLY.get(name, {})
+        assert {k: port.pop(k) for k in own} == own, name
         assert port == ref, name
     assert tcfg.DEFAULT_POLICY == tcfg.SearchPolicy()
+    assert tcfg.DEFAULT_POLICY.exact_lut is False
+    assert tcfg.DEFAULT_POLICY.resolve_symmetry is False
 
 
 def test_port_imports_no_jax():

@@ -356,3 +356,39 @@ def test_fog_find_all_on_card_launches_the_exact_kernel(card):
     assert matches
     dt, dr = sym_delta(matches[0].transform, t_gt)
     assert dt < 6e-3 and dr < 0.6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resolution", [0.02, 0.0137])
+def test_nearest_grid_kernel_matches_plain(card, resolution):
+    """csrc/nearest_grid.cu against ops/knn.nearest_grid_plain on a box model's
+    grid (a ragged z extent at the second resolution), some points invalid:
+    the same nearest distance to every sample point, the same index but for
+    ties within float32 rounding."""
+    from triplet_match_tpu_torch.ops import knn
+
+    dev, model, _, _ = card
+    xyz = model.cloud.xyz
+    valid = model.cloud.valid.clone()
+    valid[::7] = False
+    lo, hi = xyz.min(0).values.cpu().numpy(), xyz.max(0).values.cpu().numpy()
+    from triplet_match_tpu_torch.index.model import _voxel_grid_setup
+
+    extents, to_voxel = _voxel_grid_setup(lo, hi, resolution, 5)
+    to_voxel = torch.from_numpy(to_voxel).to(dev)
+    before = knn.NEAREST_GRID.launches
+    got = knn.nearest_grid(xyz, valid, to_voxel, extents)
+    torch.cuda.synchronize()
+    assert knn.NEAREST_GRID.launches == before + 1
+    want = knn.nearest_grid_plain(xyz, valid, to_voxel, extents)
+    assert got.dtype == torch.int64 and tuple(got.shape) == tuple(extents)
+    assert valid[got].all()
+    inv = torch.linalg.inv(to_voxel).double()
+    ijk = torch.stack(torch.meshgrid(*(torch.arange(e, device=dev, dtype=torch.float64)
+                                       for e in extents), indexing="ij"), -1).reshape(-1, 3)
+    c = ijk @ inv[:3, :3].T + inv[:3, 3]
+    x64 = xyz.double()
+    d_got = torch.linalg.vector_norm(c - x64[got.reshape(-1)], dim=-1)
+    d_want = torch.linalg.vector_norm(c - x64[want.reshape(-1)], dim=-1)
+    assert float((d_got - d_want).abs().max()) <= 1e-6
+    assert float((got == want).double().mean()) > 0.999

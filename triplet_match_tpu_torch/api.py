@@ -66,13 +66,25 @@ class Model:
              subset: np.ndarray | None = None) -> "Model":
         """``model::init`` (include/model:35-37).  The subset restricts only the
         edge/pair-table eligibility; the voxel LUT and scoring keep the whole
-        cloud (impl/model.hpp:17-30)."""
+        cloud (impl/model.hpp:17-30).  Under ``SearchPolicy.resolve_symmetry``
+        it also detects the model's self-symmetry orbit, which the join then
+        resolves each match on."""
         mask = None
         if subset is not None:
             mask = np.zeros(self._cloud.capacity, bool)
             mask[np.asarray(subset)] = True
-        self._compiled = model_index.compile_model(self._cloud, self._params, sample_params,
-                                                   self._policy, subset=mask)
+        compiled = model_index.compile_model(self._cloud, self._params, sample_params,
+                                             self._policy, subset=mask)
+        if self._policy.resolve_symmetry:
+            from triplet_match_tpu_torch.index.symmetry import (close_orbit,
+                                                                detect_self_symmetries)
+
+            with torch.profiler.record_function("model.orbit"):
+                orbit = close_orbit(compiled, detect_self_symmetries(
+                    compiled, self._params, sample_params, self._policy), self._policy)
+            compiled = dataclasses.replace(
+                compiled, orbit=torch.as_tensor(orbit, device=compiled.cloud.device))
+        self._compiled = compiled
         return self
 
     @property

@@ -391,6 +391,23 @@ class SearchPolicy:
     # without provided tangents are unaffected (both masks empty).
     scene_raw_tangents: bool | None = None
 
+    # --- model compilation (the port's own; the JAX package has no such field) ---
+    # build a voxel LUT above the jump-flood threshold by the exact 1-NN of
+    # every voxel's sample point (ops/knn.nearest_grid: csrc/nearest_grid.cu on
+    # the card) instead of the almost exact jump flood: the C++ reference's
+    # exact table (impl/model.hpp:81-94).  Grids at or below the threshold are
+    # built exactly either way.
+    exact_lut: bool = False
+
+    # --- the join (the port's own; the JAX package has no such field) ---
+    # give each accepted match the member of the model's self-symmetry orbit
+    # (index/symmetry.py, detected once by api.Model.init) with the most scene
+    # points within the ranking's gate, before its tight polish.  Pair features and
+    # the voxel gate cannot tell a symmetric model's turns apart, so without it
+    # a match lands on whichever turn its hypotheses reached.  Needs ICP
+    # (max_icp_iterations > 0), whose polish re-derives the claims.
+    resolve_symmetry: bool = False
+
 
 DEFAULT_SAMPLE_PARAMS = SampleParams()
 DEFAULT_DISCRETIZATION = DiscretizationParams()

@@ -7,8 +7,9 @@
   table queried by ``searchsorted`` plus a bounded even-stride gather.
 
 Grids above ``_LUT_JFA_THRESHOLD`` voxels build the LUT by jump flood
-(``ops/jfa.nearest_point_volume``), as the JAX package does; smaller ones by
-the exact brute 1-NN.
+(``ops/jfa.nearest_point_volume``), as the JAX package does, or, with
+``SearchPolicy.exact_lut``, by the exact 1-NN kernel (``ops/knn.nearest_grid``),
+as the C++ reference does; smaller ones by the exact brute 1-NN.
 """
 
 from __future__ import annotations
@@ -55,6 +56,10 @@ class CompiledModel:
       pairs:      [P, 2] int64 (i, j) model point indices, co-sorted.
       pair_count, n_edge, n_all: 0-d int64 tensors.
       margin:     voxel margin (5, impl/model.hpp:48).
+      orbit:      [K, 4, 4] float32 self-maps S with S @ model ~= model, the
+                  identity first (``index/symmetry.py``), or None: the port's
+                  own, set by ``api.Model.init`` under
+                  ``SearchPolicy.resolve_symmetry``.
     """
 
     cloud: cl.PointCloud
@@ -71,6 +76,7 @@ class CompiledModel:
     n_edge: torch.Tensor
     n_all: torch.Tensor
     margin: int
+    orbit: torch.Tensor | None = None
 
     @property
     def extents(self) -> tuple[int, int, int]:
@@ -173,19 +179,24 @@ def _build(cloud, edge, edge_idx, edge_idx_valid, to_voxel, res, dia, lower_boun
     cloud = cl.finite_filter(cloud)
     dev = cloud.device
     ex, ey, ez = extents
-    if ex * ey * ez > _LUT_JFA_THRESHOLD:
-        # big grids (densely sampled models): the jump flood, O(V log V) with
-        # no O(V * N) term; almost exact (ops/jfa.py)
-        lut = nearest_point_volume(cloud.xyz, cloud.valid, to_voxel, extents=extents)
-    else:
-        inv = torch.linalg.inv(to_voxel)
-        ii, jj, kk = torch.meshgrid(
-            torch.arange(ex, dtype=torch.float32, device=dev),
-            torch.arange(ey, dtype=torch.float32, device=dev),
-            torch.arange(ez, dtype=torch.float32, device=dev), indexing="ij")
-        centers = torch.stack([ii, jj, kk], dim=-1).reshape(-1, 3) @ inv[:3, :3].T + inv[:3, 3]
-        lut_idx, _ = knn_ops.nn1(centers, cloud.xyz, cloud.valid)
-        lut = lut_idx.reshape(ex, ey, ez)
+    with torch.profiler.record_function("model.lut"):
+        if ex * ey * ez > _LUT_JFA_THRESHOLD and policy.exact_lut:
+            # big grids, exact: one brute-force kernel over every (voxel, point)
+            lut = knn_ops.nearest_grid(cloud.xyz, cloud.valid, to_voxel, extents)
+        elif ex * ey * ez > _LUT_JFA_THRESHOLD:
+            # big grids (densely sampled models): the jump flood, O(V log V)
+            # with no O(V * N) term; almost exact (ops/jfa.py)
+            lut = nearest_point_volume(cloud.xyz, cloud.valid, to_voxel, extents=extents)
+        else:
+            inv = torch.linalg.inv(to_voxel)
+            ii, jj, kk = torch.meshgrid(
+                torch.arange(ex, dtype=torch.float32, device=dev),
+                torch.arange(ey, dtype=torch.float32, device=dev),
+                torch.arange(ez, dtype=torch.float32, device=dev), indexing="ij")
+            centers = (torch.stack([ii, jj, kk], dim=-1).reshape(-1, 3) @ inv[:3, :3].T
+                       + inv[:3, 3])
+            lut_idx, _ = knn_ops.nn1(centers, cloud.xyz, cloud.valid)
+            lut = lut_idx.reshape(ex, ey, ez)
 
     exyz = cloud.xyz[edge_idx]
     etan = cloud.tangent[edge_idx]

@@ -128,6 +128,58 @@ def detect_self_symmetries(model: CompiledModel,
     return np.stack(orbit)
 
 
+def close_orbit(model: CompiledModel, orbit: np.ndarray,
+                policy: SearchPolicy = DEFAULT_POLICY, *, min_overlap: float = 0.8,
+                angle_tol_deg: float = 8.0, trans_tol_factor: float = 2.0,
+                max_orbit: int = 16) -> np.ndarray:
+    """The self-maps that ``orbit``'s members generate, [K', 4, 4] float32,
+    ``orbit`` first (the port's own; the JAX package has no such step).
+
+    ``detect_self_symmetries`` keeps the members its hypotheses reach, which
+    for a three-fold turn may be one of its two turns.  Each product of two
+    members that is no member yet is converged onto the model by the same two
+    chained ICP passes and kept when its self-coverage is ``min_overlap`` of
+    the identity's, until no product is new or the orbit holds ``max_orbit``.
+    """
+    from triplet_match_tpu_torch.core.transforms import strict_fp32
+    from triplet_match_tpu_torch.refine.icp import icp_refine
+    from triplet_match_tpu_torch.search.score import finish_find
+
+    dev = model.cloud.device
+    consumed = torch.zeros(model.cloud.capacity, dtype=torch.bool, device=dev)
+    thres = policy.corr_dist_factor
+    trans_tol = trans_tol_factor * float(model.resolution)
+    out = [np.asarray(s, np.float32) for s in orbit]
+
+    def known(t):
+        return any(_rot_angle_deg(t[:3, :3] @ s[:3, :3].T) < angle_tol_deg
+                   and float(np.linalg.norm(t[:3, 3] - s[:3, 3])) < trans_tol for s in out)
+
+    def coverage(t):
+        tt = torch.as_tensor(t, dtype=torch.float32, device=dev)[None]
+        return int(finish_find(model, model.cloud, model.edge, consumed, tt, thres).count[0])
+
+    with strict_fp32():
+        cov_id = max(coverage(np.eye(4, dtype=np.float32)), 1)
+        grew = True
+        while grew and len(out) < max_orbit:
+            grew = False
+            for a in list(out):
+                for b in list(out):
+                    t = (a.astype(np.float64) @ b.astype(np.float64)).astype(np.float32)
+                    if len(out) >= max_orbit or known(t):
+                        continue
+                    tt = torch.as_tensor(t, device=dev)[None]
+                    for _ in range(2):
+                        tt = icp_refine(model, model.cloud, model.edge, consumed, tt, thres,
+                                        10, tight_iterations=4).transform
+                    t = tt[0].cpu().numpy().astype(np.float32)
+                    if not known(t) and coverage(t) / cov_id >= min_overlap:
+                        out.append(t)
+                        grew = True
+    return np.stack(out)
+
+
 def symmetry_equivalent(t1, t2, orbit: np.ndarray, *, angle_tol_deg: float = 5.0,
                         trans_tol: float = 1e-2) -> bool:
     """True when two model -> scene poses place the model identically modulo

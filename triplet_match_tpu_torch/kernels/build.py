@@ -112,9 +112,27 @@ def load_coarse_linear_rank() -> ctypes.CDLL:
     return _load("coarse_linear_rank", _COARSE_ARGS)
 
 
-# every kernel source with its loader: the TPU kernels B1, B2, B3 and B4, in order
+def load_nearest_grid() -> ctypes.CDLL:
+    """The exact voxel-LUT library (``csrc/nearest_grid.cu``), built on first use."""
+    # pts, m, lut, ex, ey, ez, the sample-point map (10 floats), stream
+    return _load("nearest_grid", [_P, _I, _P, _I, _I, _I] + [_F] * 10 + [_P])
+
+
+class LaunchCounter:
+    """Counts launches of one CUDA kernel (and nothing else)."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def reset(self):
+        self.launches = 0
+
+
+# every kernel source with its loader: the TPU kernels B1, B2, B3 and B4, in
+# order, then the exact voxel-LUT kernel, which replaces no TPU kernel
 SOURCES = {"coarse_rank": load_coarse_rank, "exact_rank": load_exact_rank,
-           "full_rank": load_full_rank, "coarse_linear_rank": load_coarse_linear_rank}
+           "full_rank": load_full_rank, "coarse_linear_rank": load_coarse_linear_rank,
+           "nearest_grid": load_nearest_grid}
 
 
 def build_all(ptxas_info: bool = False) -> None:

@@ -10,8 +10,12 @@ column chunks.  Indices are int64.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+
+from triplet_match_tpu_torch.kernels.build import LaunchCounter
 
 _INF = 3.0e38
 _TILE = 1 << 24  # distances per query block
@@ -73,6 +77,62 @@ def nn1(q: torch.Tensor, r: torch.Tensor, r_valid: torch.Tensor, *,
         idx_out.append(idx)
         d2_out.append(d2m)
     return torch.cat(idx_out), torch.cat(d2_out)
+
+
+def nearest_grid_plain(points: torch.Tensor, valid: torch.Tensor, to_voxel: torch.Tensor,
+                       extents: tuple[int, int, int]) -> torch.Tensor:
+    """[ex, ey, ez] int64: the nearest valid point to every voxel's sample
+    point (the voxel at integer voxel coordinates mapped back to the world),
+    by one ``nn1`` over all of them (impl/model.hpp:81-94): the table
+    ``compile_model`` builds on its brute route, and ``nearest_grid``'s plain
+    version."""
+    ex, ey, ez = (int(e) for e in extents)
+    dev = points.device
+    inv = torch.linalg.inv(to_voxel)
+    ii, jj, kk = torch.meshgrid(
+        torch.arange(ex, dtype=torch.float32, device=dev),
+        torch.arange(ey, dtype=torch.float32, device=dev),
+        torch.arange(ez, dtype=torch.float32, device=dev), indexing="ij")
+    centers = torch.stack([ii, jj, kk], dim=-1).reshape(-1, 3) @ inv[:3, :3].T + inv[:3, 3]
+    idx, _ = nn1(centers, points, valid)
+    return idx.reshape(ex, ey, ez)
+
+
+NEAREST_GRID = LaunchCounter()
+
+
+def nearest_grid(points: torch.Tensor, valid: torch.Tensor, to_voxel: torch.Tensor,
+                 extents: tuple[int, int, int]) -> torch.Tensor:
+    """``nearest_grid_plain``'s table: on the CPU the plain version, on the
+    card one launch of ``csrc/nearest_grid.cu`` (ties may fall the other way
+    where two points lie within float32 rounding of one distance)."""
+    if points.device.type != "cuda":
+        return nearest_grid_plain(points, valid, to_voxel, extents)
+    from triplet_match_tpu_torch.kernels.build import load_nearest_grid
+
+    ex, ey, ez = (int(e) for e in extents)
+    inv = torch.linalg.inv(to_voxel.to(torch.float32)).cpu()
+    if inv[0, 2] != 0 or inv[1, 2] != 0:
+        raise ValueError("nearest_grid needs voxel x and y independent of the voxel's k")
+    ids = torch.nonzero(valid)[:, 0]
+    lut = torch.zeros((ex, ey, ez), dtype=torch.int64, device=points.device)
+    if ids.numel() == 0 or lut.numel() == 0:
+        return lut
+    # float4 rows: x, y, z and the point's index, copied as bits
+    pts = torch.empty((ids.numel(), 4), dtype=torch.int32, device=points.device)
+    pts[:, :3] = points[ids].to(torch.float32).contiguous().view(torch.int32)
+    pts[:, 3] = ids
+    a = [float(inv[r, c]) for r, c in ((0, 0), (0, 1), (0, 3), (1, 0), (1, 1), (1, 3), (2, 0),
+                                       (2, 1), (2, 2), (2, 3))]
+    lib = load_nearest_grid()
+    stream = torch.cuda.current_stream(points.device).cuda_stream
+    err = lib.nearest_grid_launch(pts.data_ptr(), ids.numel(), lut.data_ptr(), ex, ey, ez,
+                                  *(ctypes.c_float(x) for x in a), stream)
+    if err != 0:
+        raise RuntimeError("nearest_grid kernel launch failed: "
+                           f"{lib.nearest_grid_error_string(err).decode()}")
+    NEAREST_GRID.launches += 1
+    return lut
 
 
 def nn1_exclusive_dist(cloud, *, block: int | None = None) -> torch.Tensor:

@@ -485,6 +485,9 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
     consumed_next = consumed | (new_corr & accept[:, None]).any(0)
 
     if max_icp_iterations > 0 and bool(accept.any()):
+        if model.orbit is not None and model.orbit.shape[0] > 1:
+            t_fin = resolve_orbit(model, cloud, tangent_mask, consumed, t_fin, accept,
+                                  dist_thres, policy, group=group)
         t_fin, new_corr, corr_midx, fin_counts, fin_scores, consumed_next = polish_accepted(
             model, cloud, tangent_mask, consumed, dist_thres, policy, t_fin, accept, order,
             acc_ord, inv_order, group=group)
@@ -492,6 +495,26 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
         join_overflow = pmax(join_overflow, *group)  # per-shard candidate counts differ
     return (t_fin, accept, new_corr, corr_midx, fin_counts, fin_scores, consumed_next,
             join_overflow)
+
+
+def resolve_orbit(model: CompiledModel, cloud, tangent_mask, consumed, t_fin, accept,
+                  dist_thres, policy: SearchPolicy, group=None) -> torch.Tensor:
+    """Move each accepted finalist to the member of the model's orbit with
+    the most scene points within the hypotheses' own gate (``dist_thres``,
+    the count their ranking takes); ties keep the pose as it is.  ``t_fin``
+    [F, 4, 4] is scene -> model, so a member S (S @ model ~= model) turns a
+    pose into S @ t.  The counts run on the whole scene, one pose per
+    accepted finalist and member.  ``group``: as in ``accept_and_polish``."""
+    acc = torch.nonzero(accept)[:, 0]
+    cand = model.orbit[None] @ t_fin[acc][:, None]  # [A, K, 4, 4]
+    count = finish_find(model, cloud, tangent_mask, consumed, cand, dist_thres,
+                        weighted_distance=policy.weighted_distance,
+                        negative_scores=policy.negative_scores,
+                        samples_on_all=_rank_on_all(policy), group=group).count
+    best = torch.argmax(count, dim=1)  # the first of equal counts: the identity first
+    out = t_fin.clone()
+    out[acc] = cand[torch.arange(acc.numel(), device=acc.device), best]
+    return out
 
 
 def polish_accepted(model, cloud, tangent_mask, consumed, dist_thres, policy, t_fin, accept,

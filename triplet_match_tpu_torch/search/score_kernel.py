@@ -39,6 +39,7 @@ import torch
 
 from triplet_match_tpu_torch.core.transforms import fma32
 from triplet_match_tpu_torch.kernels.build import (
+    LaunchCounter,
     load_coarse_linear_rank,
     load_coarse_rank,
     load_exact_rank,
@@ -287,17 +288,7 @@ def poses_to_rows(ts: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-class _LaunchCounter:
-    """Counts launches of the CUDA kernel (and nothing else)."""
-
-    def __init__(self):
-        self.launches = 0
-
-    def reset(self):
-        self.launches = 0
-
-
-COARSE_RANK = _LaunchCounter()
+COARSE_RANK = LaunchCounter()
 
 
 def _f32(x) -> float:
@@ -563,7 +554,7 @@ def score_groups_coarse(mpack: ModelPack, groups: torch.Tensor, poses: torch.Ten
 # B4: the pose-linearised coarse ranker
 # ---------------------------------------------------------------------------
 
-COARSE_LINEAR_RANK = _LaunchCounter()
+COARSE_LINEAR_RANK = LaunchCounter()
 _LIN_C = 7  # statics channels: [x, y, z, p2_hi, p2_lo, 1, w]
 
 
@@ -689,8 +680,8 @@ def score_groups_coarse_linear(mpack: ModelPack, groups: torch.Tensor, poses: to
 # B2 and B3: the exact two-minimum rankers (count and full mode)
 # ---------------------------------------------------------------------------
 
-EXACT_RANK = _LaunchCounter()
-FULL_RANK = _LaunchCounter()
+EXACT_RANK = LaunchCounter()
+FULL_RANK = LaunchCounter()
 # every launch counter, by the TPU kernel its kernel replaces
 LAUNCH_COUNTERS = {"B1": COARSE_RANK, "B2": EXACT_RANK, "B3": FULL_RANK,
                    "B4": COARSE_LINEAR_RANK}
