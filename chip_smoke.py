@@ -5,9 +5,9 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device   — a CUDA card is required; there is no CPU fallback.
-2. build    — compile csrc/coarse_rank.cu, exact_rank.cu, full_rank.cu and
-              coarse_linear_rank.cu from this checkout (one nvcc each,
-              started together, sm_90a).
+2. build    — compile every csrc/*.cu of kernels.build.SOURCES (the ranking
+              kernels, nearest_grid.cu and join_score.cu) from this checkout
+              (one nvcc each, started together, sm_90a).
 3. B1, B4, B3 — on real neighbourhoods of the 131k fixture scene with
               near-true and junk poses, at the shapes of the standard-density
               path: the coarse ranker (TPU kernel B1) and the linearised
@@ -106,6 +106,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
               lattice's all-edge pack (an empty surface block); find_all on
               that scene, first and warm, within the contract, the fog switch
               fired, B2 launched and B1, B3, B4 not, no join overflow.
+15b. latticecell — the lattice cell's path: api.Model.init of the lattice
+              with exact_lut and resolve_symmetry (the exact 512^3 table, the
+              orbit's detection through the join), then api.Matcher.match on
+              the 131k lattice scene, first and warm: within the contract, B2
+              launched and B1, B3, B4 not, an exact-lookup pass and an orbit
+              step ([A, K] poses) among the join's passes.
+15c. join   — each pass shape of the join that main500 and latticecell ran
+              (their first calls' own inputs: the shared 500k scan, the
+              [16, 65536] subsets, the 512^3 exact table, the orbit step):
+              csrc/join_score.cu timed as a CUDA graph of 20 wrapper calls
+              (device time; eager calls time the host's enqueue, printed
+              beside), the plain pass, the device ops of one call, and the
+              bound (compulsory bytes at 3.35 TB/s).
 16. multi1m — BASELINE config 5 at full size through api.MultiMatcher: box
               models A and B (2400 points each) planted in 1M points of fog
               patches, raycast-verified from five origins (min_cast_score
@@ -156,15 +169,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
               rank and B1 not; hypotheses per round against the single
               device's, per-rank peak memory and rank 0's seconds.
 
-Every main path runs with all four launch counts set to 0 just before its
-first call and read just after it.  Kernel and plain times are CUDA-event
-means over warm launches.  Every timing line carries the nvidia-smi name and
+Every main path runs with all five launch counts (B1-B4 and JS, the join's
+csrc/join_score.cu) set to 0 just before its first call and read just after
+it.  In that first call, and in the first call of multi1m, of every mesh
+rank, of the symmetry detections, every pass of the join on the card is held
+to the plain pass (``_JoinAudit``: count, ok and model_idx bit for bit, the
+score within float32 reassociation), and JS must equal the passes that
+launched and the search's ``join_score_kernel_launches``.  Kernel and plain
+times are CUDA-event means over warm launches.  Every timing line carries the nvidia-smi name and
 power limit.  The last two lines of standard output are one JSON object
 listing the kernels of the paths and then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -306,7 +325,7 @@ def _profile(tag: str, fn, smi: str) -> dict:
 
 
 def build_kernels(smi: str) -> dict:
-    """Compile the four kernels of this checkout (one nvcc per source, started
+    """Compile the kernels of this checkout (one nvcc per source, started
     together), load them, print each build's seconds and ptxas register
     lines, and return those lines by source."""
     from triplet_match_tpu_torch.kernels import build as kbuild
@@ -357,24 +376,35 @@ def _check_poses(dev, prep, model, t_gt, policy, gen, tag_seed):
     return groups, rows
 
 
-def _main_path(tag, sk, driver, search, t_gt, smi):
+def _launch_counters(sk) -> dict:
+    """The launch counters by short name: the ranking kernels B1-B4 and JS,
+    the join's scoring pass (csrc/join_score.cu)."""
+    from triplet_match_tpu_torch.search import score
+
+    return {**sk.LAUNCH_COUNTERS, "JS": score.JOIN_SCORE}
+
+
+def _main_path(tag, sk, driver, search, t_gt, smi, audit=None):
     """``search()`` twice (first, warm) with every launch count zeroed just
-    before the first call; returns (stats, the first call's launches by
-    kernel, its matches)."""
+    before the first call, and the first call's join passes held to the
+    plain pass (``audit``, a ``_JoinAudit``; a fresh one if None); returns
+    (stats, the first call's launches by kernel, its matches)."""
     import torch
 
     from triplet_match_tpu_torch.io.synthetic import sym_delta
 
     torch.cuda.reset_peak_memory_stats()
-    for c in sk.LAUNCH_COUNTERS.values():
+    for c in _launch_counters(sk).values():
         c.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    matches = search()
+    with audit or _JoinAudit() as aud:
+        matches = search()
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    launches = {b: c.launches for b, c in sk.LAUNCH_COUNTERS.items()}
+    launches = {b: c.launches for b, c in _launch_counters(sk).items()}
     stats = dict(driver.LAST_SEARCH_STATS)
+    aud.check(tag, launches["JS"], stats.get("join_score_kernel_launches"), smi)
     t0 = time.perf_counter()
     matches2 = search()
     torch.cuda.synchronize()
@@ -384,7 +414,7 @@ def _main_path(tag, sk, driver, search, t_gt, smi):
         raise AssertionError(f"[{tag}] the search found nothing (stats {stats})")
     dt, dr = sym_delta(matches[0].transform, t_gt)
     dt2, dr2 = sym_delta(matches2[0].transform, t_gt)
-    _log(f"[{tag}] search first {t_first:.3f} s, warm {t_warm:.3f} s | rounds "
+    _log(f"[{tag}] search first {t_first:.3f} s (join audited), warm {t_warm:.3f} s | rounds "
          f"{stats['rounds']} hypotheses {stats['hypotheses_scored']} | matches {len(matches)} | "
          f"first match {dt * 1000:.4f} mm / {dr:.4f} deg (warm {dt2 * 1000:.4f} mm / "
          f"{dr2:.4f} deg) | launches {launches} | peak {peak / 2**20:.1f} MiB | {smi}")
@@ -407,6 +437,166 @@ def _expect_launches(tag, launches, stats, launched, idle):
     for b in idle:
         if launches[b] != 0 or stats.get(keys[b], 0) != 0:
             raise AssertionError(f"[{tag}] the search launched {b}: {launches}")
+
+
+_EPS32 = 2.0 ** -23  # float32's machine epsilon
+
+
+class _JoinAudit:
+    """Inside ``with``: every pass of the join on the card (``finish_find``'s
+    ``search.score._score_points_cuda``, one launch of csrc/join_score.cu)
+    is run again through the plain pass, ``_score_points`` on the same CUDA
+    tensors as ``finish_find`` called it before the kernel, and held to it:
+    count, ok and model_idx bit for bit, the score within float32
+    reassociation of its terms (tests/test_torch_kernels_cuda.py's rule).
+    The kernel's outputs go on to the search, so the search is the one the
+    counters count.  Calls are recorded by shape (the poses' leading dims,
+    the scene's, the lookup, the flags); with ``keep``, each shape's first
+    inputs too, for ``_join_time``.  A mismatch is recorded, not raised, so
+    that a search under a mesh runs to its end on every rank; ``check``
+    raises."""
+
+    def __init__(self, keep: bool = False):
+        self.keep, self.calls, self.launching = keep, 0, 0
+        self.shapes: dict = {}  # key -> {"calls", "max_abs_err", "args"}
+        self.bad: list = []
+
+    def __enter__(self):
+        from triplet_match_tpu_torch.search import score
+
+        self._mod, self._orig = score, score._score_points_cuda
+        score._score_points_cuda = self._pass
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._score_points_cuda = self._orig
+        return False
+
+    def _pass(self, model, scene, tm, consumed, ts, dist, exact, weighted, negative, on_all,
+              count_only):
+        import math
+
+        import torch
+
+        args = (model, scene, tm, consumed, ts, dist, exact, weighted, negative, on_all,
+                count_only)
+        out = self._orig(*args)
+        lead, n = tuple(ts.shape[:-2]), scene.xyz.shape[-2]
+        key = (f"poses {list(lead)} scene {list(scene.xyz.shape[:-1])} "
+               f"{'exact' if exact else 'one-read'}"
+               f"{' per-pose-gate' if isinstance(dist, torch.Tensor) else ''}"
+               f"{'' if on_all else ' tangent-test'}{' weighted' if weighted else ''}"
+               f"{' negative' if negative else ''}{' count-only' if count_only else ''}")
+        rec = self.shapes.get(key)
+        if rec is None:
+            rec = self.shapes[key] = {"calls": 0, "max_abs_err": 0.0, "args": None}
+            if self.keep:  # the claims change as the search goes on: keep this call's
+                rec["args"] = (model, scene, tm, consumed.clone(), ts.clone(),
+                               dist.clone() if isinstance(dist, torch.Tensor) else dist,
+                               exact, weighted, negative, on_all, count_only)
+        rec["calls"] += 1
+        self.calls += 1
+        if math.prod(lead) == 0 or n == 0:
+            return out
+        self.launching += 1
+        thres = torch.as_tensor(dist, dtype=torch.float32, device=ts.device) * model.resolution
+        if thres.dim():
+            thres = thres[..., None]
+        kw = dict(exact=exact, weighted_distance=weighted, samples_on_all=on_all)
+        want = self._mod._score_points(model, scene, tm, consumed, ts, None, None, thres,
+                                       negative_scores=negative, **kw)
+        pos = (self._mod._score_points(model, scene, tm, consumed, ts, None, None, thres,
+                                       negative_scores=False, **kw)[0] if negative else want[0])
+        # every term is at most 1 in magnitude; their magnitudes sum to 2 pos - score
+        diff = (out[0].double() - want[0].double()).abs()
+        mag = (2.0 * pos.double() - want[0].double()).abs()
+        same = torch.equal(out[1], want[1]) and (count_only or (
+            torch.equal(out[2], want[2]) and torch.equal(out[3], want[3])))
+        rec["max_abs_err"] = max(rec["max_abs_err"], float(diff.max()))
+        if not same or float((diff - 64 * _EPS32 * mag).max()) > 1e-6:
+            self.bad.append(f"{key}: count/ok/model_idx equal {same}, score gap "
+                            f"{float(diff.max()):.3g}")
+        return out
+
+    def check(self, tag, launched, published, smi) -> None:
+        """Fail unless every pass matched the plain one and the join's
+        launches (the counter's ``launched``, the search's ``published``
+        statistic where it has one) equal the passes that launched."""
+        shapes = {k: (v["calls"], float(f"{v['max_abs_err']:.3g}")) for k, v in self.shapes.items()}
+        _log(f"[{tag}] join audit: {self.calls} finish_find passes on the card ({self.launching} "
+             f"launching), each held to the plain pass; JS launches {launched}, published "
+             f"{published} | calls and worst score gap by shape {shapes} | {smi}")
+        if self.bad:
+            raise AssertionError(f"[{tag}] the join's kernel differs from the plain pass: "
+                                 f"{self.bad[:4]}")
+        if not (launched == self.launching > 0
+                and published in (None, launched)):
+            raise AssertionError(f"[{tag}] join_score launches {launched}, published "
+                                 f"{published}, passes that launch {self.launching}")
+
+
+def _join_time(tag, args, calls, max_abs_err, smi, reps: int = 20) -> dict:
+    """One kept join pass (``_JoinAudit``) timed on the card.  The kernel's
+    ms a pass: a CUDA graph of ``reps`` wrapper calls replayed, timed by CUDA
+    events, so that the host's enqueue stays out (about 0.1 ms a call, some
+    ten times the kernels' own time: CUDA events around eager calls read
+    that, and are printed beside).  The plain pass by CUDA events over eager
+    calls.  The bound counts the compulsory bytes at the memory rate: the
+    scene's positions and flags once per scene batch, the poses, the model's
+    positions once, the reference direction of as many scene points per
+    batch as its best pose counts, and the outputs; and about 40 fp32
+    instructions a pair (112 with the exact lookup)."""
+    import math
+
+    import torch
+
+    from triplet_match_tpu_torch.core.transforms import strict_fp32
+    from triplet_match_tpu_torch.search import score
+
+    model, scene, tm, consumed, ts, dist, exact, weighted, negative, on_all, count_only = args
+    fn = lambda: score._score_points_cuda(*args)  # noqa: E731
+    thres = torch.as_tensor(dist, dtype=torch.float32, device=ts.device) * model.resolution
+    if thres.dim():
+        thres = thres[..., None]
+
+    def plain():
+        return score._score_points(model, scene, tm, consumed, ts, None, None, thres,
+                                   exact=exact, weighted_distance=weighted,
+                                   negative_scores=negative, samples_on_all=on_all)
+
+    ops = _device_ops(fn)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (5 * reps)
+    graph.reset()
+    eager_ms = _cuda_ms(fn, reps)
+    with strict_fp32():
+        plain_ms = _cuda_ms(plain, 5)
+    count = fn()[1]
+    inp = score._join_inputs(scene, tm, consumed, ts, dist)
+    n_poses, n = math.prod(inp.lead), inp.valid.shape[-1]
+    scoring = int(count.reshape(-1, inp.batches).max(0).values.sum())
+    nbytes = (_nbytes(inp.xyz, inp.valid, inp.tangent_mask, inp.consumed, inp.poses,
+                      model.cloud.xyz) + 12 * scoring
+              + n_poses * (n * (0 if count_only else 9) + 12))
+    bound_ms, bound_by = _bound((112 if exact else 40) * n_poses * n, nbytes)
+    _log(f"[join] {tag}: {calls} passes | kernel {ms:.4f} ms a pass (graph of {reps}; device "
+         f"ops a call {ops}), eager {eager_ms:.4f} ms a call (the host's enqueue), plain "
+         f"{plain_ms:.3f} ms | bound {bound_ms:.4f} ms ({bound_by}; {nbytes} bytes), "
+         f"{100 * bound_ms / ms:.1f} % of it | {smi}")
+    return {"phase": tag, "calls": calls, "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "max_abs_err": max_abs_err, "kernels_per_call": ops.count("kernel")}
 
 
 def _warp_sweep_share(sk, grp, gi, ki, surv, n_poses) -> float:
@@ -630,16 +820,20 @@ def _check_multi1m(api, driver, sk, disc, sample, policy, dev, smi) -> dict:
               max_icp_iterations=10, seed=5)
     calls = []
     for call in ("first", "warm"):
-        for c in sk.LAUNCH_COUNTERS.values():
+        for c in _launch_counters(sk).values():
             c.reset()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        results = mm.match(scene, **kw)
+        with _JoinAudit() if call == "first" else contextlib.nullcontext() as audit:
+            results = mm.match(scene, **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = {b: c.launches for b, c in sk.LAUNCH_COUNTERS.items()}
+        launches = {b: c.launches for b, c in _launch_counters(sk).items()}
         stats = [dict(st) for st in driver.LAST_MULTI_SEARCH_STATS]
+        if audit is not None:
+            audit.check(f"multi1m {call} call", launches["JS"],
+                        sum(st["join_score_kernel_launches"] for st in stats), smi)
         peak = torch.cuda.max_memory_allocated() / 2**20
         calls.append(launches)
         k = len(BASELINE_ORIGINS)
@@ -671,7 +865,8 @@ def _check_multi1m(api, driver, sk, disc, sample, policy, dev, smi) -> dict:
                                      f"{st}")
         if launches["B2"] <= 0 or any(launches[b] for b in ("B1", "B3", "B4")):
             raise AssertionError(f"[multi1m] launches {launches}: B2 alone expected")
-        _log(f"[multi1m] {call} call: MultiMatcher.match {secs:.3f} s | launches {launches} | "
+        _log(f"[multi1m] {call} call{' (join audited)' if audit else ''}: MultiMatcher.match "
+             f"{secs:.3f} s | launches {launches} | "
              f"peak {peak:.1f} MiB | statistics {mm.statistics} | {smi}")
     for i, (model, matches) in enumerate(zip(library, results)):
         c = model.compiled
@@ -939,23 +1134,29 @@ def _mesh_rank(spec: dict) -> list:
         scene, _ = recall_scene(run["points"], seed=run["seed"], device=dev)
         shape = tuple(run["shape"])
         mesh = make_mesh_2d(*shape) if len(shape) == 2 else make_mesh_3d(*shape)
-        for c in sk.LAUNCH_COUNTERS.values():
+        for c in _launch_counters(sk).values():
             c.reset()
         torch.cuda.reset_peak_memory_stats()
         seconds = []
+        audit = _JoinAudit()
         for call in range(2):
             torch.cuda.synchronize()
             dist.barrier()
             t0 = time.perf_counter()
-            matches = driver.find_all(model, scene, mesh=mesh, **kw)
+            with audit if call == 0 else contextlib.nullcontext():
+                matches = driver.find_all(model, scene, mesh=mesh, **kw)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
             if call == 0:
-                launches = {b: c.launches for b, c in sk.LAUNCH_COUNTERS.items()}
+                launches = {b: c.launches for b, c in _launch_counters(sk).items()}
                 stats = dict(driver.LAST_SEARCH_STATS)
                 first = [(m.transform, len(m.scene_corrs)) for m in matches]
         rec = {"name": run["name"], "rank": rank, "shape": shape, "seconds": seconds,
                "launches": launches, "stats": stats, "matches": first,
+               "join_audit": {"passes": audit.calls, "launching": audit.launching,
+                              "bad": audit.bad,
+                              "shapes": {k: (v["calls"], v["max_abs_err"])
+                                         for k, v in audit.shapes.items()}},
                "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
                "shard": scene.capacity // shape[-1]}
         if run.get("profile"):
@@ -1032,6 +1233,11 @@ def _check_mesh_runs(tag, results, single, t_gt, smi) -> dict:
                                      f"{st['join_overflow_max']}")
             if r["launches"]["B2"] <= 0 or r["launches"]["B1"] != 0:
                 raise AssertionError(f"[{tag}] {name} rank {r['rank']}: launches {r['launches']}")
+            ja = r["join_audit"]  # the join's passes on the rank's shard, held to the plain pass
+            if ja["bad"] or not (r["launches"]["JS"] == ja["launching"]
+                                 == st["join_score_kernel_launches"] > 0):
+                raise AssertionError(f"[{tag}] {name} rank {r['rank']}: join audit {ja}, "
+                                     f"launches {r['launches']}")
             if len(r["matches"]) != len(rec0["matches"]) or any(
                     float(abs(a[0] - b[0]).max()) > 0 or a[1] != b[1]
                     for a, b in zip(r["matches"], rec0["matches"])):
@@ -1076,7 +1282,8 @@ def _check_mesh_runs(tag, results, single, t_gt, smi) -> dict:
              f"{st['rounds']} hypotheses {st['hypotheses_scored']} | launches per rank "
              f"{[r['launches'] for r in recs]} | peak MiB per rank "
              f"{[round(r['peak_mib'], 1) for r in recs]}, shard {rec0['shard']} points{extra} "
-             f"| {smi}")
+             f"| join audit, rank 0: {rec0['join_audit']['passes']} passes on the shard held to "
+             f"the plain pass, by shape {rec0['join_audit']['shapes']} | {smi}")
         launches[name] = rec0["launches"]
     return launches
 
@@ -1091,14 +1298,18 @@ def _check_symmetry(model, disc, sample, policy, smi) -> None:
     import torch
 
     from triplet_match_tpu_torch.index.symmetry import detect_self_symmetries
+    from triplet_match_tpu_torch.search import score
 
     pol = dataclasses.replace(policy, num_first_samples=48, num_second_samples=16, query_cap=16,
                               score_neighbors=256, finalists=4)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    orbit = detect_self_symmetries(model, disc, sample, pol, seed=0, rounds=3)
+    js0 = score.JOIN_SCORE.launches
+    with _JoinAudit() as audit:
+        orbit = detect_self_symmetries(model, disc, sample, pol, seed=0, rounds=3)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    audit.check("symmetry", score.JOIN_SCORE.launches - js0, None, smi)
     want = [np.diag(d).astype(np.float32) for d in ([1, -1, -1], [-1, 1, -1], [-1, -1, 1])]
     ok = (2 <= orbit.shape[0] <= 4 and np.abs(orbit[0] - np.eye(4)).max() < 1e-6
           and all(any(np.abs(s[:3, :3] - w).max() < 0.1 for w in want)
@@ -1142,6 +1353,7 @@ def main() -> int:
     )
     from triplet_match_tpu_torch.ops.knn import radius_chunk_cols
     from triplet_match_tpu_torch.search import driver, score_kernel as sk
+    from triplet_match_tpu_torch.search.score import JOIN_SCORE
 
     t_all = time.perf_counter()
     walls: dict = {}
@@ -1487,8 +1699,9 @@ def main() -> int:
 
     # --- 500k main paths -------------------------------------------------------------
     t0 = time.perf_counter()
+    audit500 = _JoinAudit(keep=True)
     stats5, launches500, matches500 = _main_path(
-        "main500", sk, driver, lambda: driver.find_all(model, scene5, **kw), t_gt5, smi)
+        "main500", sk, driver, lambda: driver.find_all(model, scene5, **kw), t_gt5, smi, audit500)
     if not stats5["fine_rescore_full"]:
         raise AssertionError("the fog-density switch did not fire at 500k")
     if stats5["num_second_samples_effective"] != eff5.num_second_samples:
@@ -1497,6 +1710,11 @@ def main() -> int:
     if stats5["join_overflow_max"] != 0:
         raise AssertionError(f"the subset join overflowed by {stats5['join_overflow_max']}")
     walls["main500"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    js_phases = [_join_time(f"main500 {k}", v["args"], v["calls"], v["max_abs_err"], smi)
+                 for k, v in audit500.shapes.items()]
+    del audit500
+    walls["join 500k"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     _profile("profile500", lambda: driver.find_all(model, scene5, prep=prep5, **kw), smi)
@@ -1620,8 +1838,39 @@ def main() -> int:
         raise AssertionError(f"the subset join overflowed by {stats_lat['join_overflow_max']}")
     if stats_lat["num_second_samples_effective"] != eff_lat.num_second_samples:
         raise AssertionError("the B2 lattice check ran at other shapes than the search")
-    del scene_lat, lat_model
+    del lat_model
     walls["mainlattice"] = time.perf_counter() - t0
+
+    # --- the lattice cell's path: the exact 512^3 table and the orbit step --------------
+    t0 = time.perf_counter()
+    cell_policy = dataclasses.replace(policy, exact_lut=True, resolve_symmetry=True)
+    js0 = JOIN_SCORE.launches
+    with _JoinAudit() as audit:  # Model.init's symmetry detection runs through the join
+        lat_api = api.Model(PointCloud.from_arrays(*lat, device=dev), disc,
+                            cell_policy).init(sample)
+    torch.cuda.synchronize()
+    audit.check("latticecell init", JOIN_SCORE.launches - js0, None, smi)
+    orbit_lat = lat_api.compiled.orbit
+    _log(f"[latticecell] api.Model.init with exact_lut and resolve_symmetry: "
+         f"{time.perf_counter() - t0:.3f} s, table {tuple(lat_api.compiled.lut.shape)}, orbit "
+         f"of {0 if orbit_lat is None else orbit_lat.shape[0]} | {smi}")
+    if tuple(lat_api.compiled.lut.shape) != (512, 512, 512) or orbit_lat is None \
+            or orbit_lat.shape[0] < 2:
+        raise AssertionError("[latticecell] no exact 512^3 table or no orbit")
+    audit_lat = _JoinAudit(keep=True)
+    stats_latc, launches_latc, _ = _main_path(
+        "latticecell", sk, driver,
+        lambda: api.Matcher(lat_api, policy=cell_policy).match(scene_lat, **api_kw), t_gt_lat,
+        smi, audit_lat)
+    _expect_launches("latticecell", launches_latc, stats_latc, ("B2",), ("B1", "B3", "B4"))
+    if not (any("," in k.split(" scene ")[0] for k in audit_lat.shapes)
+            and any(" exact" in k for k in audit_lat.shapes)):
+        raise AssertionError(f"[latticecell] no orbit-step [A, K] pass or no exact lookup among "
+                             f"{list(audit_lat.shapes)}")
+    js_phases = [_join_time(f"latticecell {k}", v["args"], v["calls"], v["max_abs_err"], smi)
+                 for k, v in audit_lat.shapes.items()] + js_phases
+    del scene_lat, lat_api, audit_lat
+    walls["latticecell"] = time.perf_counter() - t0
 
     # --- BASELINE config 5: a two-model library in 1M points, raycast-verified -------
     t0 = time.perf_counter()
@@ -1668,8 +1917,8 @@ def main() -> int:
     paths = {"main131": launches131, "main131full": launches_full131,
              "main131lin": launches_lin131, "main500": launches500,
              "main500full": launches_full500, "main2m": launches2m,
-             "mainlattice": launches_lat, "multi1m": launches_multi, "lut131": launches_lut,
-             **launches_mesh}
+             "mainlattice": launches_lat, "latticecell": launches_latc, "multi1m": launches_multi,
+             "lut131": launches_lut, **launches_mesh}
 
     def entry(b, name, source, replaces, path, phases):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1690,6 +1939,8 @@ def main() -> int:
               src + "full_rank.cu", tpu + ":394", "main131full", b3_phases),
         entry("B4", "coarse_linear_rank (B4, pose-linearised coarse 4-D hit-count ranker)",
               src + "coarse_linear_rank.cu", tpu + ":922", "main131lin", b4_phases),
+        entry("JS", "join_score (the join's scoring pass, search.score.finish_find)",
+              src + "join_score.cu", None, "latticecell", js_phases),
     ]}
     print(smi, flush=True)
     print(json.dumps(line), flush=True)

@@ -392,3 +392,152 @@ def test_nearest_grid_kernel_matches_plain(card, resolution):
     d_want = torch.linalg.vector_norm(c - x64[want.reshape(-1)], dim=-1)
     assert float((d_got - d_want).abs().max()) <= 1e-6
     assert float((got == want).double().mean()) > 0.999
+
+
+# --- the join's scoring pass (csrc/join_score.cu) -----------------------------------
+
+JOIN_KNOBS = [dict(), dict(exact=True), dict(samples_on_all=False),
+              dict(exact=True, samples_on_all=False),
+              dict(weighted_distance=True, negative_scores=True),
+              dict(exact=True, weighted_distance=True, negative_scores=True)]
+_EPS32 = float(np.finfo(np.float32).eps)
+
+
+def _scene_with_padding(dev, s_xyz, s_nrm, s_tan, rng):
+    """A scan with 1000 padding rows, 1 % of its rows invalid, 10 % claimed."""
+    valid = rng.random(s_xyz.shape[0]) > 0.01
+    cloud = PointCloud.from_arrays(s_xyz, s_nrm, s_tan, valid=valid,
+                                   capacity=s_xyz.shape[0] + 1000, device=dev)
+    consumed = torch.from_numpy(rng.random(cloud.capacity) < 0.1).to(dev)
+    tm = torch.linalg.vector_norm(cloud.tangent, dim=-1) > 0.7
+    return cloud, tm, consumed
+
+
+def _near_and_far(t_gt, count, rng):
+    """``count`` scene -> model poses near the truth and, last, one 0.3 m off."""
+    ts = np.tile(np.linalg.inv(t_gt).astype(np.float32), (count, 1, 1))
+    ts[:-1, :3, 3] += rng.normal(0, 0.003, (count - 1, 3)).astype(np.float32)
+    ts[-1, :3, 3] += 0.3
+    return ts
+
+
+@pytest.fixture(scope="module")
+def box500k(card):
+    """The recall box model in a 500k-point recall scan (fog, padding,
+    invalid and claimed rows) and 16 poses near the truth, the last far."""
+    from triplet_match_tpu_torch.io.synthetic import recall_box_model, recall_scene_arrays
+
+    dev = card[0]
+    xyz, nrm, tan = recall_box_model()
+    model = compile_model(PointCloud.from_arrays(xyz, nrm, tan, device=dev),
+                          cfg.DiscretizationParams(), SAMPLE, cfg.SearchPolicy())
+    s_xyz, s_nrm, s_tan, t_gt = recall_scene_arrays(500000, 3)
+    rng = np.random.default_rng(11)
+    cloud, tm, consumed = _scene_with_padding(dev, s_xyz, s_nrm, s_tan, rng)
+    return model, cloud, tm, consumed, torch.from_numpy(_near_and_far(t_gt, 16, rng)).to(dev)
+
+
+@pytest.fixture(scope="module")
+def lattice131k(card):
+    """The graded lattice with its exact 512^3 table in a 131k-point scan, and
+    [2, 3] orbit-step poses: two poses near the truth under the identity and
+    the two axis cycles (turns of 120 degrees about (1, 1, 1))."""
+    from triplet_match_tpu_torch.io.synthetic import model_arrays, recall_scene_arrays
+
+    dev = card[0]
+    lat = model_arrays("lattice")
+    model = compile_model(PointCloud.from_arrays(*lat, device=dev), cfg.DiscretizationParams(),
+                          SAMPLE, cfg.SearchPolicy(exact_lut=True))
+    assert tuple(model.lut.shape) == (512, 512, 512)
+    s_xyz, s_nrm, s_tan, t_gt = recall_scene_arrays(131072, 2, lat)
+    rng = np.random.default_rng(12)
+    cloud, tm, consumed = _scene_with_padding(dev, s_xyz, s_nrm, s_tan, rng)
+    cyc = np.eye(4, dtype=np.float32)[[1, 2, 0, 3]]
+    orbit = np.stack([np.eye(4, dtype=np.float32), cyc, cyc @ cyc])
+    ts = _near_and_far(t_gt, 2, rng)
+    ts[1] = np.linalg.inv(t_gt).astype(np.float32)
+    cand = torch.from_numpy(orbit[None] @ ts[:, None]).to(dev)  # [A, K, 4, 4]
+    return model, cloud, tm, consumed, cand
+
+
+def _join_case(box500k, lattice131k, layout):
+    """(model, scene, tangent mask, consumed, poses, dist_thres) of a layout."""
+    if layout.startswith("lattice"):
+        model, cloud, tm, consumed, cand = lattice131k
+        dist = (torch.tensor([[3.0, 1.5, 6.0], [2.0, 3.0, 0.5]], device=cand.device)
+                if layout == "lattice_thres" else 3.0)
+        return model, cloud, tm, consumed, cand, dist
+    model, cloud, tm, consumed, ts = box500k
+    if layout == "shared":
+        return model, cloud, tm, consumed, ts[:4], 6.0
+    if layout == "shared_thres":
+        return model, cloud, tm, consumed, ts[:4], torch.tensor([3.0, 6.0, 1.0, 12.0],
+                                                                device=ts.device)
+    sub, stm, scons, _, _, n_cand = driver._candidate_subset(model, cloud, tm, consumed, ts, 3.0,
+                                                             65536, 1.0)
+    assert sub.xyz.shape[:2] == (16, 65536)
+    return model, sub, stm, scons, ts, 6.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", JOIN_KNOBS, ids=lambda k: "-".join(k) or "plain")
+@pytest.mark.parametrize("layout", ["shared", "shared_thres", "subset", "lattice",
+                                    "lattice_thres"])
+def test_join_score_kernel_matches_plain(box500k, lattice131k, layout, knobs):
+    """csrc/join_score.cu against the plain pass (``_score_points``) on CUDA
+    tensors: ok, model_idx and count bit for bit, the score within float32
+    reassociation of its terms, and two launches alike to the bit."""
+    from triplet_match_tpu_torch.core.transforms import strict_fp32
+    from triplet_match_tpu_torch.search import score
+
+    model, scene, tm, consumed, t, dist = _join_case(box500k, lattice131k, layout)
+    thres = torch.as_tensor(dist, dtype=torch.float32, device=t.device) * model.resolution
+    if thres.dim():
+        thres = thres[..., None]
+    with strict_fp32():
+        want = score._score_points(model, scene, tm, consumed, t, None, None, thres, **knobs)
+        pos = score._score_points(model, scene, tm, consumed, t, None, None, thres,
+                                  **dict(knobs, negative_scores=False))[0]
+        before = score.JOIN_SCORE.launches
+        a = score.finish_find(model, scene, tm, consumed, t, dist, **knobs)
+        b = score.finish_find(model, scene, tm, consumed, t, dist, **knobs)
+        c = score.finish_find(model, scene, tm, consumed, t, dist, count_only=True, **knobs)
+        torch.cuda.synchronize()
+    assert score.JOIN_SCORE.launches == before + 3
+    assert torch.equal(a.count, want[1]) and torch.equal(a.valid, want[2])
+    assert torch.equal(a.model_idx, want[3])
+    assert int(a.count.max()) > 100 and int(a.count.min()) < int(a.count.max())
+    # every term is at most 1 in magnitude; the sum of their magnitudes is
+    # pos + (pos - score) = 2 pos - score
+    mag = (2.0 * pos.double() - want[0].double()).abs()
+    assert float(((a.score.double() - want[0].double()).abs() - 64 * _EPS32 * mag).max()) <= 1e-6
+    for x, y in ((a.score, b.score), (a.count, b.count), (a.valid, b.valid),
+                 (a.model_idx, b.model_idx)):
+        assert torch.equal(x, y)
+    assert c.valid is None and c.model_idx is None
+    assert torch.equal(c.count, a.count) and torch.equal(c.score, a.score)
+
+
+@pytest.mark.cuda
+def test_fog_find_all_on_card_counts_one_join_launch_per_pass(card, monkeypatch):
+    """A fog-route search makes one join_score launch per finish_find call
+    and publishes their number as ``join_score_kernel_launches``."""
+    from triplet_match_tpu_torch.search import score
+
+    dev, model, scene, t_gt = card
+    calls = []
+    launch = score._score_points_cuda
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return launch(*a, **kw)
+
+    monkeypatch.setattr(score, "_score_points_cuda", counted)
+    policy = dataclasses.replace(cfg.SearchPolicy(), num_first_samples=16, num_second_samples=8,
+                                 query_cap=8, score_neighbors=256, finalists=2, max_rounds=2,
+                                 fine_full_rescore_ratio=0.0)
+    matches = driver.find_all(model, scene, dist_thres=3.0, model_match_factor=0.5,
+                              sample_params=SAMPLE, policy=policy, max_icp_iterations=5, seed=13)
+    stats = driver.LAST_SEARCH_STATS
+    assert stats["fine_rescore_full"] is True and matches
+    assert stats["join_score_kernel_launches"] == len(calls) > 0

@@ -79,7 +79,8 @@ def detect_self_symmetries(model: CompiledModel,
 
     def coverage(t: np.ndarray) -> int:
         tt = torch.as_tensor(t, dtype=torch.float32, device=dev)[None]
-        return int(finish_find(model, model.cloud, model.edge, consumed, tt, thres).count[0])
+        return int(finish_find(model, model.cloud, model.edge, consumed, tt, thres,
+                               count_only=True).count[0])
 
     def refine(t: np.ndarray) -> np.ndarray:
         # ICP against the model's own cloud: candidates converge onto the exact
@@ -157,7 +158,8 @@ def close_orbit(model: CompiledModel, orbit: np.ndarray,
 
     def coverage(t):
         tt = torch.as_tensor(t, dtype=torch.float32, device=dev)[None]
-        return int(finish_find(model, model.cloud, model.edge, consumed, tt, thres).count[0])
+        return int(finish_find(model, model.cloud, model.edge, consumed, tt, thres,
+                               count_only=True).count[0])
 
     with strict_fp32():
         cov_id = max(coverage(np.eye(4, dtype=np.float32)), 1)

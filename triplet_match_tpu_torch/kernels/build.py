@@ -118,6 +118,19 @@ def load_nearest_grid() -> ctypes.CDLL:
     return _load("nearest_grid", [_P, _I, _P, _I, _I, _I] + [_F] * 10 + [_P])
 
 
+def load_join_score() -> ctypes.CDLL:
+    """The join's scoring-pass library (``csrc/join_score.cu``), built on first use."""
+    # poses, n_poses, dist_p, dist, res, xyz, normal, tangent, valid, tmask,
+    # consumed, n, batches, mxyz, mnormal, mtangent, lut, ex, ey, ez,
+    # to_voxel, exact, weighted, negative, on_all, ok, midx, part, score,
+    # count, stream
+    lib = _load("join_score", [_P, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                               _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P])
+    part = lib.join_score_part_floats  # n, n_poses -> floats of ``part``
+    part.argtypes, part.restype = [_I, _I], ctypes.c_longlong
+    return lib
+
+
 class LaunchCounter:
     """Counts launches of one CUDA kernel (and nothing else)."""
 
@@ -129,10 +142,11 @@ class LaunchCounter:
 
 
 # every kernel source with its loader: the TPU kernels B1, B2, B3 and B4, in
-# order, then the exact voxel-LUT kernel, which replaces no TPU kernel
+# order, then the exact voxel-LUT kernel and the join's scoring pass, which
+# replace no TPU kernel
 SOURCES = {"coarse_rank": load_coarse_rank, "exact_rank": load_exact_rank,
            "full_rank": load_full_rank, "coarse_linear_rank": load_coarse_linear_rank,
-           "nearest_grid": load_nearest_grid}
+           "nearest_grid": load_nearest_grid, "join_score": load_join_score}
 
 
 def build_all(ptxas_info: bool = False) -> None:

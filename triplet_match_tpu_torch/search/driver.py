@@ -70,7 +70,12 @@ from triplet_match_tpu_torch.search.sampling import (
     sample_firsts,
     sample_seconds,
 )
-from triplet_match_tpu_torch.search.score import _score_points, finish_find, normalize_score
+from triplet_match_tpu_torch.search.score import (
+    JOIN_SCORE,
+    _score_points,
+    finish_find,
+    normalize_score,
+)
 
 @dataclasses.dataclass(frozen=True)
 class ScenePrep:
@@ -429,7 +434,8 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
             return finish_find(model, sc, tm, co, t, 2.0 * dist_thres,
                                weighted_distance=policy.weighted_distance,
                                negative_scores=policy.negative_scores,
-                               samples_on_all=_rank_on_all(policy), group=group).count
+                               samples_on_all=_rank_on_all(policy), group=group,
+                               count_only=True).count
 
         if use_subset:
             sub, stm, scons, _, _, n_cand = subset(t_best)
@@ -510,7 +516,8 @@ def resolve_orbit(model: CompiledModel, cloud, tangent_mask, consumed, t_fin, ac
     count = finish_find(model, cloud, tangent_mask, consumed, cand, dist_thres,
                         weighted_distance=policy.weighted_distance,
                         negative_scores=policy.negative_scores,
-                        samples_on_all=_rank_on_all(policy), group=group).count
+                        samples_on_all=_rank_on_all(policy), group=group,
+                        count_only=True).count
     best = torch.argmax(count, dim=1)  # the first of equal counts: the identity first
     out = t_fin.clone()
     out[acc] = cand[torch.arange(acc.numel(), device=acc.device), best]
@@ -818,7 +825,9 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
     ``utils.timer.Profiler``) plus the launches of each ranking kernel in
     this search (on this rank): ``coarse_kernel_launches`` (B1),
     ``exact_kernel_launches`` (B2), ``full_kernel_launches`` (B3) and
-    ``coarse_linear_kernel_launches`` (B4).
+    ``coarse_linear_kernel_launches`` (B4), and of the join's scoring pass,
+    ``join_score_kernel_launches`` (one per ``finish_find`` call on the
+    card, 0 on the CPU).
     """
     from triplet_match_tpu_torch.utils.timer import Profiler
 
@@ -830,7 +839,8 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
     gen = generator if generator is not None else torch.Generator().manual_seed(seed)
     counters = {"coarse_kernel_launches": sk.COARSE_RANK, "exact_kernel_launches": sk.EXACT_RANK,
                 "full_kernel_launches": sk.FULL_RANK,
-                "coarse_linear_kernel_launches": sk.COARSE_LINEAR_RANK}
+                "coarse_linear_kernel_launches": sk.COARSE_LINEAR_RANK,
+                "join_score_kernel_launches": JOIN_SCORE}
     launches0 = {key: c.launches for key, c in counters.items()}
     profiler = Profiler()
     with strict_fp32():
@@ -981,7 +991,7 @@ def find_all_multi(models: list[CompiledModel], scene_cloud: cl.PointCloud, *,
     model's resolution and twice it.  Keyword arguments pass to ``find_all``.
 
     ``LAST_MULTI_SEARCH_STATS`` gets one dict per model: ``find_all``'s
-    ``LAST_SEARCH_STATS`` (the four ``*_kernel_launches`` included) plus
+    ``LAST_SEARCH_STATS`` (the five ``*_kernel_launches`` included) plus
     ``search_s`` and, with origins, ``raycast_s`` and ``cast_survivors`` (the
     cone cull's survivors per cast, origin by origin for each match).
     ``mesh`` goes to the scene preparation and to every model's search
