@@ -48,15 +48,14 @@ def test_port_imports_no_jax():
 
 def test_port_sources_import_no_jax():
     """No source of the port, nor any of its root scripts (chip_smoke.py,
-    ab_find_all.py, sass_mix.py, protocol_torch.py), has an import of jax or
+    sass_mix.py, protocol_torch.py), has an import of jax or
     of the JAX package (a static scan, which also covers imports inside
     functions that the import test above never runs)."""
     import re
 
     pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax\b|triplet_match_tpu(?!_torch)\b)",
                          re.MULTILINE)
-    scripts = [REPO / s for s in ("chip_smoke.py", "ab_find_all.py", "sass_mix.py",
-                                  "protocol_torch.py")]
+    scripts = [REPO / s for s in ("chip_smoke.py", "sass_mix.py", "protocol_torch.py")]
     sources = sorted((REPO / "triplet_match_tpu_torch").rglob("*.py")) + scripts
     bad = [f"{p.relative_to(REPO)}: {m.group(0).strip()}" for p in sources
            for m in pattern.finditer(p.read_text())]

@@ -396,6 +396,63 @@ def _scatter_corrs(idx, idx_valid, sub_valid, sub_midx, n: int):
     return full_v, full_m
 
 
+class _JoinPasses:
+    """Runs the join's scene-sized passes over the finalists, in chunks of
+    ``_finalist_map``: on per-finalist candidate subsets, gathered at each
+    pass's own poses, when ``policy.join_subset_capacity`` is below the scene
+    size, else on the whole scene.  ``flags``: the scoring flags and
+    ``group`` every pass takes (``group`` as in ``accept_and_polish``)."""
+
+    def __init__(self, model: CompiledModel, cloud, tangent_mask, consumed, dist_thres,
+                 policy: SearchPolicy, group=None):
+        self.model, self.cloud, self.tangent_mask = model, cloud, tangent_mask
+        self.consumed, self.dist_thres, self.slack = consumed, dist_thres, policy.join_subset_slack
+        cap = int(policy.join_subset_capacity or 0)
+        self.cap = cap if 0 < cap < cloud.capacity else 0
+        self.rows = self.cap or cloud.capacity * group_extent(group)
+        self.flags = dict(weighted_distance=policy.weighted_distance,
+                          negative_scores=policy.negative_scores, group=group)
+
+    def __call__(self, fn, ts, corrs_of=None):
+        """``fn(t, scene, tangent_mask, consumed)`` over the finalist poses
+        ``ts`` [F, 4, 4].  Returns (its result, the (valid, model_idx) of the
+        ``DenseCorrs`` that ``corrs_of`` picks from it, at scene shape [F, N],
+        the finalists' candidate counts [F]); None for the corrs without
+        ``corrs_of`` and for the counts on the whole scene."""
+        if self.cap:
+            sub, stm, scons, idx, idx_valid, n_cand = _candidate_subset(
+                self.model, self.cloud, self.tangent_mask, self.consumed, ts, self.dist_thres,
+                self.cap, self.slack)
+            out = _finalist_map(fn, ts, self.cap, sub, stm, scons)
+            to_scene = functools.partial(_scatter_corrs, idx, idx_valid, n=self.cloud.capacity)
+        else:
+            out = _finalist_map(lambda t: fn(t, self.cloud, self.tangent_mask, self.consumed), ts,
+                                self.rows)
+            to_scene, n_cand = (lambda valid, midx: (valid, midx)), None
+        corrs = None if corrs_of is None else corrs_of(out)
+        return out, None if corrs is None else to_scene(corrs.valid, corrs.model_idx), n_cand
+
+
+def _greedy_walk(corr_valid, consumed, order, decide):
+    """Greedy non-overlap claims (impl/scene.hpp:193-237): the finalists in
+    ``order`` each claim their corrs ``corr_valid`` [F, N] not yet used, and
+    a finalist that ``decide(f, new)`` accepts marks its corrs used.  The
+    host reads ``order`` once; the decisions stay on the device.  Returns
+    (accept [F], new_corr [F, N], consumed') in finalist order."""
+    used = consumed
+    acc_ord, new_ord = [], []
+    for f in order.tolist():
+        cv = corr_valid[f]
+        new = cv & ~used
+        ok = decide(f, new)
+        used = torch.where(ok, used | cv, used)
+        acc_ord.append(ok)
+        new_ord.append(new)
+    inv_order = torch.argsort(order)
+    accept, new_corr = torch.stack(acc_ord)[inv_order], torch.stack(new_ord)[inv_order]
+    return accept, new_corr, consumed | (new_corr & accept[:, None]).any(0)
+
+
 def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_best, dist_thres,
                       model_match_factor, *, policy: SearchPolicy, max_icp_iterations: int,
                       group=None):
@@ -404,12 +461,12 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
 
     With ``finalist_prescreen`` below the funnel width, one full relaxed-count
     pass per finalist (ranking eligibility, ``_rank_on_all``) keeps a stable
-    top-``finalist_prescreen``.  With ``join_subset_capacity`` below the
-    scene size, every scene-sized pass runs on per-finalist candidate
-    subsets, regathered at each phase boundary.  Every scene-sized pass maps
-    its finalists through ``_finalist_map``.  Returns (t_fin, accept,
-    new_corr, model_idx, counts, scores, consumed', join_overflow), the last
-    the worst candidate overflow of the subset passes (0 when exact or off).
+    top-``finalist_prescreen``.  Every scene-sized pass runs through one
+    ``_JoinPasses``: on per-finalist candidate subsets, regathered at each
+    phase boundary, with ``join_subset_capacity`` below the scene size.
+    Returns (t_fin, accept, new_corr, model_idx, counts, scores, consumed',
+    join_overflow), the last the worst candidate overflow of the prescreen's
+    and the ICP's gathers (0 when exact or off).
 
     ``group``: a ``parallel.mesh.MeshAxis`` when ``cloud`` (and the masks) are
     one shard of a scene sharded over it (the sp-sharded round).  Every count,
@@ -418,32 +475,16 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
     per-point outputs stay shard-local, and the join overflow is the worst
     over the shards.  The finalist chunks follow the global scene size.
     """
-    n_scene = cloud.capacity
-    n_rows = n_scene * group_extent(group)
-    cap = int(policy.join_subset_capacity or 0)
-    use_subset = 0 < cap < n_scene
-    join_overflow = torch.zeros((), dtype=torch.int64, device=t_best.device)
-
-    def subset(ts):
-        return _candidate_subset(model, cloud, tangent_mask, consumed, ts, dist_thres, cap,
-                                 policy.join_subset_slack)
-
+    passes = _JoinPasses(model, cloud, tangent_mask, consumed, dist_thres, policy, group)
+    pre_cand = None
     keep = int(policy.finalist_prescreen)
     if 0 < keep < t_best.shape[0]:
         def pre_count(t, sc, tm, co):
             return finish_find(model, sc, tm, co, t, 2.0 * dist_thres,
-                               weighted_distance=policy.weighted_distance,
-                               negative_scores=policy.negative_scores,
-                               samples_on_all=_rank_on_all(policy), group=group,
-                               count_only=True).count
+                               samples_on_all=_rank_on_all(policy), count_only=True,
+                               **passes.flags).count
 
-        if use_subset:
-            sub, stm, scons, _, _, n_cand = subset(t_best)
-            pre = _finalist_map(pre_count, t_best, cap, sub, stm, scons)
-            join_overflow = torch.maximum(join_overflow, n_cand.max() - cap)
-        else:
-            pre = _finalist_map(lambda t: pre_count(t, cloud, tangent_mask, consumed), t_best,
-                                n_rows)
+        pre, _, pre_cand = passes(pre_count, t_best)
         # ties break toward the higher-ranked hypothesis, as lax.top_k does
         t_best = t_best[torch.sort(pre, descending=True, stable=True)[1][:keep]]
 
@@ -451,52 +492,36 @@ def accept_and_polish(model: CompiledModel, cloud, tangent_mask, consumed, t_bes
     # gated on) acceptance
     def icp(t, sc, tm, co):
         return icp_refine(model, sc, tm, co, t, dist_thres, max_icp_iterations,
-                          tight_iterations=0, weighted_distance=policy.weighted_distance,
-                          negative_scores=policy.negative_scores,
-                          point_to_plane=policy.icp_point_to_plane,
-                          samples_on_all=policy.samples_on_all, group=group)
+                          tight_iterations=0, point_to_plane=policy.icp_point_to_plane,
+                          samples_on_all=policy.samples_on_all, **passes.flags)
 
-    if use_subset:
-        sub, stm, scons, s_idx, s_ivalid, n_cand = subset(t_best)
-        res = _finalist_map(icp, t_best, cap, sub, stm, scons)
-        join_overflow = torch.maximum(join_overflow, n_cand.max() - cap)
-        corr_valid, corr_midx = _scatter_corrs(s_idx, s_ivalid, res.corrs.valid,
-                                               res.corrs.model_idx, n_scene)
-    else:
-        res = _finalist_map(lambda t: icp(t, cloud, tangent_mask, consumed), t_best, n_rows)
-        corr_valid, corr_midx = res.corrs.valid, res.corrs.model_idx
+    res, (corr_valid, corr_midx), icp_cand = passes(icp, t_best, corrs_of=lambda r: r.corrs)
+    join_overflow = torch.zeros((), dtype=torch.int64, device=t_best.device)
+    for n_cand in (pre_cand, icp_cand):  # the polish's gathers count none, as in the JAX package
+        if n_cand is not None:
+            join_overflow = torch.maximum(join_overflow, n_cand.max() - passes.cap)
     t_fin, fin_counts, fin_scores = res.transform, res.corrs.count, res.corrs.score
 
-    # --- greedy acceptance (impl/scene.hpp:193-237) ---
     order = torch.sort(-fin_counts, stable=True)[1]
     mmf = _f32(model_match_factor)
     min_pts = int(np.floor(mmf * _f32(model.n_edge)))
     min_pts_all = int(np.floor(mmf * _f32(model.n_all)))
-    used = consumed
-    acc_ord, new_ord = [], []
-    for f in order.tolist():
-        cv = corr_valid[f]
-        new = cv & ~used
+
+    def count_test(f, new):
         if not sharded(group):
-            ok = ((new & tangent_mask).sum() >= min_pts) & (new.sum() >= min_pts_all)
-        else:  # one collective for both counts
-            counts = psum(torch.stack([(new & tangent_mask).sum(), new.sum()]), *group)
-            ok = (counts[0] >= min_pts) & (counts[1] >= min_pts_all)
-        used = torch.where(ok, used | cv, used)
-        acc_ord.append(ok)
-        new_ord.append(new)
-    inv_order = torch.argsort(order)
-    acc_ord, new_ord = torch.stack(acc_ord), torch.stack(new_ord)
-    accept, new_corr = acc_ord[inv_order], new_ord[inv_order]
-    consumed_next = consumed | (new_corr & accept[:, None]).any(0)
+            return ((new & tangent_mask).sum() >= min_pts) & (new.sum() >= min_pts_all)
+        # one collective for both counts
+        counts = psum(torch.stack([(new & tangent_mask).sum(), new.sum()]), *group)
+        return (counts[0] >= min_pts) & (counts[1] >= min_pts_all)
+
+    accept, new_corr, consumed_next = _greedy_walk(corr_valid, consumed, order, count_test)
 
     if max_icp_iterations > 0 and bool(accept.any()):
         if model.orbit is not None and model.orbit.shape[0] > 1:
             t_fin = resolve_orbit(model, cloud, tangent_mask, consumed, t_fin, accept,
                                   dist_thres, policy, group=group)
         t_fin, new_corr, corr_midx, fin_counts, fin_scores, consumed_next = polish_accepted(
-            model, cloud, tangent_mask, consumed, dist_thres, policy, t_fin, accept, order,
-            acc_ord, inv_order, group=group)
+            passes, policy, t_fin, accept, order)
     if sharded(group):
         join_overflow = pmax(join_overflow, *group)  # per-shard candidate counts differ
     return (t_fin, accept, new_corr, corr_midx, fin_counts, fin_scores, consumed_next,
@@ -524,56 +549,30 @@ def resolve_orbit(model: CompiledModel, cloud, tangent_mask, consumed, t_fin, ac
     return out
 
 
-def polish_accepted(model, cloud, tangent_mask, consumed, dist_thres, policy, t_fin, accept,
-                    order, acc_ord, inv_order, group=None):
+def polish_accepted(passes: _JoinPasses, policy: SearchPolicy, t_fin, accept, order):
     """Tight-polish every finalist of an accepting round, then re-derive the
-    reported corrs, counts, scores and point claims at the polished poses
-    (same order, frozen accept decisions).  The acceptance decision stays at
-    the unpolished pose (impl/scene.hpp:193-237).  Under the subset join the
-    polish runs on candidates at the relaxed-ICP poses and the claim pass on
-    candidates at the polished poses.  ``group``: as in ``accept_and_polish``."""
-    n_scene = cloud.capacity
-    n_rows = n_scene * group_extent(group)
-    cap = int(policy.join_subset_capacity or 0)
+    reported corrs, counts, scores and point claims at the polished poses,
+    walking the same ``order`` with the ``accept`` decisions frozen: the
+    acceptance decision stays at the unpolished pose (impl/scene.hpp:193-237).
+    On candidate subsets the polish gathers at the relaxed-ICP poses and the
+    claim pass at the polished poses."""
+    model, dist_thres = passes.model, passes.dist_thres
 
     def polish(t, sc, tm, co):
         return tight_polish(
             model, sc, tm, co, t, dist_thres, iterations=policy.tight_icp_iterations,
             orientation_weight=policy.tight_orientation_weight, anneal=policy.tight_anneal,
-            edges_only=bool(policy.tight_edges_only),
-            weighted_distance=policy.weighted_distance, negative_scores=policy.negative_scores,
-            point_to_plane=policy.icp_point_to_plane,
+            edges_only=bool(policy.tight_edges_only), point_to_plane=policy.icp_point_to_plane,
             point_to_line_at_floor=bool(policy.tight_point_to_line),
-            samples_on_all=policy.samples_on_all, group=group)
+            samples_on_all=policy.samples_on_all, **passes.flags)
 
     def claim_pass(t, sc, tm, co):
         return finish_find(model, sc, tm, co, t, 2.0 * dist_thres,
-                           weighted_distance=policy.weighted_distance,
-                           negative_scores=policy.negative_scores,
-                           samples_on_all=policy.samples_on_all, group=group)
+                           samples_on_all=policy.samples_on_all, **passes.flags)
 
-    if 0 < cap < n_scene:
-        sub, stm, scons, _, _, _ = _candidate_subset(model, cloud, tangent_mask, consumed, t_fin,
-                                                     dist_thres, cap, policy.join_subset_slack)
-        t_pol = _finalist_map(polish, t_fin, cap, sub, stm, scons)
-        sub, stm, scons, p_idx, p_ivalid, _ = _candidate_subset(
-            model, cloud, tangent_mask, consumed, t_pol, dist_thres, cap,
-            policy.join_subset_slack)
-        corrs = _finalist_map(claim_pass, t_pol, cap, sub, stm, scons)
-        corr_v, corr_m = _scatter_corrs(p_idx, p_ivalid, corrs.valid, corrs.model_idx, n_scene)
-    else:
-        t_pol = _finalist_map(lambda t: polish(t, cloud, tangent_mask, consumed), t_fin, n_rows)
-        corrs = _finalist_map(lambda t: claim_pass(t, cloud, tangent_mask, consumed), t_pol,
-                              n_rows)
-        corr_v, corr_m = corrs.valid, corrs.model_idx
-    used = consumed
-    new_ord = []
-    for f, ok in zip(order.tolist(), acc_ord):
-        cv = corr_v[f]
-        new_ord.append(cv & ~used)
-        used = torch.where(ok, used | cv, used)
-    new_c = torch.stack(new_ord)[inv_order]
-    consumed2 = consumed | (new_c & accept[:, None]).any(0)
+    t_pol, _, _ = passes(polish, t_fin)
+    corrs, (corr_v, corr_m), _ = passes(claim_pass, t_pol, corrs_of=lambda c: c)
+    _, new_c, consumed2 = _greedy_walk(corr_v, passes.consumed, order, lambda f, new: accept[f])
     return t_pol, new_c, corr_m, corrs.count, corrs.score, consumed2
 
 
