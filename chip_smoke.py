@@ -6,7 +6,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device   — a CUDA card is required; there is no CPU fallback.
 2. build    — compile every csrc/*.cu of kernels.build.SOURCES (the ranking
-              kernels, nearest_grid.cu and join_score.cu) from this checkout
+              kernels, nearest_grid.cu, join_score.cu and join_fit.cu) from this checkout
               (one nvcc each, started together, sm_90a).
 3. B1, B4, B3 — on real neighbourhoods of the 131k fixture scene with
               near-true and junk poses, at the shapes of the standard-density
@@ -119,6 +119,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (device time; eager calls time the host's enqueue, printed
               beside), the plain pass, the device ops of one call, and the
               bound (compulsory bytes at 3.35 TB/s).
+15d. fit    — each fit shape of the join that main500 and latticecell ran
+              (Model.init's symmetry detection included; relaxed Kabsch, the
+              polish's orientation-weighted Kabsch on edges and Gauss-Newton
+              at the floor, on their first calls' own inputs):
+              csrc/join_fit.cu timed as in 15c, the wrapper's eager enqueue,
+              the plain float32 fit, the device ops of one call, the bound
+              (compulsory bytes), and the worst gap to the float64 fit beside
+              the plain fit's.
 16. multi1m — BASELINE config 5 at full size through api.MultiMatcher: box
               models A and B (2400 points each) planted in 1M points of fog
               patches, raycast-verified from five origins (min_cast_score
@@ -169,13 +177,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
               rank and B1 not; hypotheses per round against the single
               device's, per-rank peak memory and rank 0's seconds.
 
-Every main path runs with all five launch counts (B1-B4 and JS, the join's
-csrc/join_score.cu) set to 0 just before its first call and read just after
-it.  In that first call, and in the first call of multi1m, of every mesh
-rank, of the symmetry detections, every pass of the join on the card is held
-to the plain pass (``_JoinAudit``: count, ok and model_idx bit for bit, the
-score within float32 reassociation), and JS must equal the passes that
-launched and the search's ``join_score_kernel_launches``.  Kernel and plain
+Every main path runs with all six launch counts (B1-B4, JS, the join's
+csrc/join_score.cu, and JF, its csrc/join_fit.cu) set to 0 just before its
+first call and read just after it.  In that first call, and in the first call
+of multi1m, of every mesh rank, of the symmetry detections, every pass of the
+join on the card is held to the plain pass (``_JoinAudit``: count, ok and
+model_idx bit for bit, the score within float32 reassociation), and JS must
+equal the passes that launched and the search's
+``join_score_kernel_launches``; every pose fit on the card, the mesh ranks'
+scene-sharded ones included, is held to the plain fit in float64 (no farther
+from it than the float32 plain fit, plus 1e-6 rad and 1e-6 x the scene's, or
+the shard's, extent), and JF must equal the fits audited and the search's
+``join_fit_kernel_launches``.  Kernel and plain
 times are CUDA-event means over warm launches.  Every timing line carries the nvidia-smi name and
 power limit.  The last two lines of standard output are one JSON object
 listing the kernels of the paths and then {"ok": true, "device": {...}}.
@@ -219,6 +232,28 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device ms of one call of ``fn``: a CUDA graph of ``reps`` calls,
+    replayed five times between CUDA events, so that the host's enqueue
+    stays out."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    graph.reset()
+    return start.elapsed_time(end) / (5 * reps)
 
 
 def _device_ops(fn) -> list:
@@ -377,11 +412,13 @@ def _check_poses(dev, prep, model, t_gt, policy, gen, tag_seed):
 
 
 def _launch_counters(sk) -> dict:
-    """The launch counters by short name: the ranking kernels B1-B4 and JS,
-    the join's scoring pass (csrc/join_score.cu)."""
+    """The launch counters by short name: the ranking kernels B1-B4, JS, the
+    join's scoring pass (csrc/join_score.cu), and JF, its pose fit
+    (csrc/join_fit.cu)."""
+    from triplet_match_tpu_torch.refine import icp
     from triplet_match_tpu_torch.search import score
 
-    return {**sk.LAUNCH_COUNTERS, "JS": score.JOIN_SCORE}
+    return {**sk.LAUNCH_COUNTERS, "JS": score.JOIN_SCORE, "JF": icp.JOIN_FIT}
 
 
 def _main_path(tag, sk, driver, search, t_gt, smi, audit=None):
@@ -404,7 +441,8 @@ def _main_path(tag, sk, driver, search, t_gt, smi, audit=None):
     t_first = time.perf_counter() - t0
     launches = {b: c.launches for b, c in _launch_counters(sk).items()}
     stats = dict(driver.LAST_SEARCH_STATS)
-    aud.check(tag, launches["JS"], stats.get("join_score_kernel_launches"), smi)
+    aud.check(tag, launches["JS"], stats.get("join_score_kernel_launches"), smi,
+              launches["JF"], stats.get("join_fit_kernel_launches"))
     t0 = time.perf_counter()
     matches2 = search()
     torch.cuda.synchronize()
@@ -449,28 +487,65 @@ class _JoinAudit:
     tensors as ``finish_find`` called it before the kernel, and held to it:
     count, ok and model_idx bit for bit, the score within float32
     reassociation of its terms (tests/test_torch_kernels_cuda.py's rule).
-    The kernel's outputs go on to the search, so the search is the one the
-    counters count.  Calls are recorded by shape (the poses' leading dims,
-    the scene's, the lookup, the flags); with ``keep``, each shape's first
-    inputs too, for ``_join_time``.  A mismatch is recorded, not raised, so
-    that a search under a mesh runs to its end on every rank; ``check``
-    raises."""
+    Every pose fit on the card (``refine.icp._fit_cuda``, one call of
+    csrc/join_fit.cu) is held to the plain fit evaluated in float64 on the
+    same inputs, under the same mesh group: no farther from it than the
+    float32 plain fit, plus 1e-6 rad and 1e-6 x the scene's (or the shard's)
+    extent (``refine.fit_check.fit_excess``, the card tests' rule).  The kernels' outputs go on to the search, so the search is
+    the one the counters count.  Calls are recorded by shape (the poses'
+    leading dims, the scene's, the lookup or fit mode, the flags); with
+    ``keep``, each shape's first inputs too, for ``_join_time`` and
+    ``_fit_time``.  A mismatch is recorded, not raised, so that a search
+    under a mesh runs to its end on every rank; ``check`` raises."""
 
     def __init__(self, keep: bool = False):
         self.keep, self.calls, self.launching = keep, 0, 0
         self.shapes: dict = {}  # key -> {"calls", "max_abs_err", "args"}
+        self.fits: dict = {}  # key -> {"calls", "gap", "plain_gap", "args"}
+        self.fit_calls = 0
         self.bad: list = []
 
     def __enter__(self):
+        from triplet_match_tpu_torch.refine import icp
         from triplet_match_tpu_torch.search import score
 
         self._mod, self._orig = score, score._score_points_cuda
         score._score_points_cuda = self._pass
+        self._icp, self._orig_fit = icp, icp._fit_cuda
+        icp._fit_cuda = self._fit
         return self
 
     def __exit__(self, *exc):
         self._mod._score_points_cuda = self._orig
+        self._icp._fit_cuda = self._orig_fit
         return False
+
+    def _fit(self, model, scene, tm, t, corrs, group=None, **mode):
+        from triplet_match_tpu_torch.parallel.mesh import sharded
+        from triplet_match_tpu_torch.refine.fit_check import fit_excess
+
+        out = self._orig_fit(model, scene, tm, t, corrs, group=group, **mode)
+        key = (f"fit poses {list(t.shape[:-2])} scene {list(scene.xyz.shape[:-1])} "
+               f"{' '.join(k for k, v in sorted(mode.items()) if v) or 'relaxed'}"
+               f"{' sharded' if sharded(group) else ''}")
+        rec = self.fits.get(key)
+        if rec is None:
+            rec = self.fits[key] = {"calls": 0, "gap": [0.0, 0.0], "plain_gap": [0.0, 0.0],
+                                    "args": None}
+            if self.keep and not sharded(group):  # the search goes on from these poses
+                rec["args"] = (model, scene, tm, t.clone(),
+                               type(corrs)(*(c.clone() for c in corrs)), mode)
+        rec["calls"] += 1
+        self.fit_calls += 1
+        over_t, over_r, gaps, plain_gaps = fit_excess(model, scene, tm, t, corrs, out,
+                                                       group=group, **mode)
+        for i in range(2):
+            rec["gap"][i] = max(rec["gap"][i], float(gaps[i].max()))
+            rec["plain_gap"][i] = max(rec["plain_gap"][i], float(plain_gaps[i].max()))
+        if float(over_t.max()) > 0.0 or float(over_r.max()) > 0.0:
+            self.bad.append(f"{key}: the fit beyond its bound by {float(over_t.max()):.3g} / "
+                            f"{float(over_r.max()):.3g} rad")
+        return out
 
     def _pass(self, model, scene, tm, consumed, ts, dist, exact, weighted, negative, on_all,
               count_only):
@@ -518,21 +593,37 @@ class _JoinAudit:
                             f"{float(diff.max()):.3g}")
         return out
 
-    def check(self, tag, launched, published, smi) -> None:
-        """Fail unless every pass matched the plain one and the join's
-        launches (the counter's ``launched``, the search's ``published``
-        statistic where it has one) equal the passes that launched."""
+    def fit_shapes(self) -> dict:
+        """Calls, the kernel's worst gap to the float64 fit (m, rad) and the
+        float32 plain fit's, by fit shape."""
+        return {k: (v["calls"], [float(f"{g:.3g}") for g in v["gap"]],
+                    [float(f"{g:.3g}") for g in v["plain_gap"]]) for k, v in self.fits.items()}
+
+    def check(self, tag, launched, published, smi, fit_launched=None, fit_published=None):
+        """Fail unless every pass matched the plain one, every fit kept its
+        bound, and the join's launches (the counter's ``launched``, the
+        search's ``published`` statistic where it has one; ``fit_launched``
+        and ``fit_published`` of the fit kernel) equal the passes that
+        launched and the fits audited."""
         shapes = {k: (v["calls"], float(f"{v['max_abs_err']:.3g}")) for k, v in self.shapes.items()}
         _log(f"[{tag}] join audit: {self.calls} finish_find passes on the card ({self.launching} "
              f"launching), each held to the plain pass; JS launches {launched}, published "
              f"{published} | calls and worst score gap by shape {shapes} | {smi}")
+        _log(f"[{tag}] fit audit: {self.fit_calls} fits on the card, each held to the "
+             f"float64 fit; JF launches {fit_launched}, published {fit_published} | calls, "
+             f"the kernel's worst gap to the float64 fit (m, rad) and the float32 plain "
+             f"fit's, by shape {self.fit_shapes()} | {smi}")
         if self.bad:
-            raise AssertionError(f"[{tag}] the join's kernel differs from the plain pass: "
+            raise AssertionError(f"[{tag}] the join's kernels differ from the plain ones: "
                                  f"{self.bad[:4]}")
         if not (launched == self.launching > 0
                 and published in (None, launched)):
             raise AssertionError(f"[{tag}] join_score launches {launched}, published "
                                  f"{published}, passes that launch {self.launching}")
+        if fit_launched is not None and not (
+                fit_launched == self.fit_calls > 0 and fit_published in (None, fit_launched)):
+            raise AssertionError(f"[{tag}] join_fit launches {fit_launched}, published "
+                                 f"{fit_published}, fits audited {self.fit_calls}")
 
 
 def _join_time(tag, args, calls, max_abs_err, smi, reps: int = 20) -> dict:
@@ -565,20 +656,7 @@ def _join_time(tag, args, calls, max_abs_err, smi, reps: int = 20) -> dict:
                                    negative_scores=negative, samples_on_all=on_all)
 
     ops = _device_ops(fn)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(5):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (5 * reps)
-    graph.reset()
+    ms = _graph_ms(fn, reps)
     eager_ms = _cuda_ms(fn, reps)
     with strict_fp32():
         plain_ms = _cuda_ms(plain, 5)
@@ -597,6 +675,55 @@ def _join_time(tag, args, calls, max_abs_err, smi, reps: int = 20) -> dict:
     return {"phase": tag, "calls": calls, "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "max_abs_err": max_abs_err, "kernels_per_call": ops.count("kernel")}
+
+
+def _fit_time(tag, rec, smi, reps: int = 20) -> dict:
+    """One kept pose fit (``_JoinAudit``) timed on the card: the kernel's ms
+    a fit as a CUDA graph of ``reps`` wrapper calls (device time), the
+    wrapper's eager ms a call (CUDA events around eager calls: the host's
+    enqueue), the plain float32 fit's ms (eager, CUDA events).  The bound
+    counts the compulsory bytes at the memory rate: the corrs' flags, and
+    per corr its model index, scene point and model point, the directions
+    where the mode reads them (orientation weight: the mask and the scene's
+    tangent or normal; orientation weight or Gauss-Newton: the model's
+    tangent, and its normal only for a corr whose tangent is no edge's,
+    |tangent| <= 0.7, as the kernel reads it), the mask under edges_only;
+    the poses and the outputs."""
+    import math
+
+    import torch
+
+    from triplet_match_tpu_torch.core.transforms import strict_fp32
+    from triplet_match_tpu_torch.refine import icp
+
+    model, scene, tm, t, corrs, mode = rec["args"]
+    fn = lambda: icp._fit_cuda(model, scene, tm, t, corrs, **mode)  # noqa: E731
+    ops = _device_ops(fn)
+    ms = _graph_ms(fn, reps)
+    eager_ms = _cuda_ms(fn, reps)
+    with strict_fp32():
+        plain_ms = _cuda_ms(lambda: icp._fit_plain(model, scene, tm, t, corrs, **mode), 5)
+    n_poses = math.prod(t.shape[:-2])
+    n_corr = int(corrs.valid.sum())
+    orient, dirs = mode.get("orientation_weight"), mode.get("orientation_weight") or \
+        mode.get("gauss_newton")
+    mtan = model.cloud.tangent[corrs.model_idx[corrs.valid]]
+    n_surface = int((torch.linalg.vector_norm(mtan, dim=-1) <= 0.7).sum())
+    per_corr = 8 + 12 + 12 + (12 if orient else 0) + (12 if dirs else 0) \
+        + (1 if mode.get("edges_only") or orient else 0)
+    nbytes = (corrs.valid.numel() + per_corr * n_corr + (12 * n_surface if dirs else 0)
+              + n_poses * (64 + 64 + 8))
+    bound_ms, bound_by = _bound(0.0, nbytes)
+    _log(f"[fit] {tag}: {rec['calls']} fits, {n_corr} corrs | kernel {ms:.4f} ms a fit (graph "
+         f"of {reps}; device ops a call {ops}), eager {eager_ms:.4f} ms a call (the host's "
+         f"enqueue), plain {plain_ms:.3f} ms | bound {bound_ms:.4f} ms ({bound_by}; {nbytes} "
+         f"bytes), {100 * bound_ms / ms:.1f} % of it | worst gap to the float64 fit "
+         f"{rec['gap'][0]:.3g} m / {rec['gap'][1]:.3g} rad (plain {rec['plain_gap'][0]:.3g} / "
+         f"{rec['plain_gap'][1]:.3g}) | {smi}")
+    return {"phase": tag, "calls": rec["calls"], "ms": ms, "eager_ms": eager_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "max_abs_err": rec["gap"][0], "max_rot_err": rec["gap"][1],
+            "kernels_per_call": ops.count("kernel")}
 
 
 def _warp_sweep_share(sk, grp, gi, ki, surv, n_poses) -> float:
@@ -833,7 +960,8 @@ def _check_multi1m(api, driver, sk, disc, sample, policy, dev, smi) -> dict:
         stats = [dict(st) for st in driver.LAST_MULTI_SEARCH_STATS]
         if audit is not None:
             audit.check(f"multi1m {call} call", launches["JS"],
-                        sum(st["join_score_kernel_launches"] for st in stats), smi)
+                        sum(st["join_score_kernel_launches"] for st in stats), smi,
+                        launches["JF"], sum(st["join_fit_kernel_launches"] for st in stats))
         peak = torch.cuda.max_memory_allocated() / 2**20
         calls.append(launches)
         k = len(BASELINE_ORIGINS)
@@ -1156,7 +1284,8 @@ def _mesh_rank(spec: dict) -> list:
                "join_audit": {"passes": audit.calls, "launching": audit.launching,
                               "bad": audit.bad,
                               "shapes": {k: (v["calls"], v["max_abs_err"])
-                                         for k, v in audit.shapes.items()}},
+                                         for k, v in audit.shapes.items()},
+                              "fits": audit.fit_calls, "fit_shapes": audit.fit_shapes()},
                "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
                "shard": scene.capacity // shape[-1]}
         if run.get("profile"):
@@ -1233,9 +1362,12 @@ def _check_mesh_runs(tag, results, single, t_gt, smi) -> dict:
                                      f"{st['join_overflow_max']}")
             if r["launches"]["B2"] <= 0 or r["launches"]["B1"] != 0:
                 raise AssertionError(f"[{tag}] {name} rank {r['rank']}: launches {r['launches']}")
-            ja = r["join_audit"]  # the join's passes on the rank's shard, held to the plain pass
+            # the join's passes on the rank's shard, held to the plain pass, and its fits,
+            # held to the float64 fit under the same group
+            ja = r["join_audit"]
             if ja["bad"] or not (r["launches"]["JS"] == ja["launching"]
-                                 == st["join_score_kernel_launches"] > 0):
+                                 == st["join_score_kernel_launches"] > 0) or not (
+                    r["launches"]["JF"] == ja["fits"] == st["join_fit_kernel_launches"] > 0):
                 raise AssertionError(f"[{tag}] {name} rank {r['rank']}: join audit {ja}, "
                                      f"launches {r['launches']}")
             if len(r["matches"]) != len(rec0["matches"]) or any(
@@ -1283,7 +1415,9 @@ def _check_mesh_runs(tag, results, single, t_gt, smi) -> dict:
              f"{[r['launches'] for r in recs]} | peak MiB per rank "
              f"{[round(r['peak_mib'], 1) for r in recs]}, shard {rec0['shard']} points{extra} "
              f"| join audit, rank 0: {rec0['join_audit']['passes']} passes on the shard held to "
-             f"the plain pass, by shape {rec0['join_audit']['shapes']} | {smi}")
+             f"the plain pass, by shape {rec0['join_audit']['shapes']}; "
+             f"{rec0['join_audit']['fits']} fits held to the float64 fit, by shape "
+             f"{rec0['join_audit']['fit_shapes']} | {smi}")
         launches[name] = rec0["launches"]
     return launches
 
@@ -1298,18 +1432,20 @@ def _check_symmetry(model, disc, sample, policy, smi) -> None:
     import torch
 
     from triplet_match_tpu_torch.index.symmetry import detect_self_symmetries
+    from triplet_match_tpu_torch.refine import icp
     from triplet_match_tpu_torch.search import score
 
     pol = dataclasses.replace(policy, num_first_samples=48, num_second_samples=16, query_cap=16,
                               score_neighbors=256, finalists=4)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    js0 = score.JOIN_SCORE.launches
+    js0, jf0 = score.JOIN_SCORE.launches, icp.JOIN_FIT.launches
     with _JoinAudit() as audit:
         orbit = detect_self_symmetries(model, disc, sample, pol, seed=0, rounds=3)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    audit.check("symmetry", score.JOIN_SCORE.launches - js0, None, smi)
+    audit.check("symmetry", score.JOIN_SCORE.launches - js0, None, smi,
+                icp.JOIN_FIT.launches - jf0, None)
     want = [np.diag(d).astype(np.float32) for d in ([1, -1, -1], [-1, 1, -1], [-1, -1, 1])]
     ok = (2 <= orbit.shape[0] <= 4 and np.abs(orbit[0] - np.eye(4)).max() < 1e-6
           and all(any(np.abs(s[:3, :3] - w).max() < 0.1 for w in want)
@@ -1353,6 +1489,7 @@ def main() -> int:
     )
     from triplet_match_tpu_torch.ops.knn import radius_chunk_cols
     from triplet_match_tpu_torch.search import driver, score_kernel as sk
+    from triplet_match_tpu_torch.refine.icp import JOIN_FIT
     from triplet_match_tpu_torch.search.score import JOIN_SCORE
 
     t_all = time.perf_counter()
@@ -1713,6 +1850,7 @@ def main() -> int:
     t0 = time.perf_counter()
     js_phases = [_join_time(f"main500 {k}", v["args"], v["calls"], v["max_abs_err"], smi)
                  for k, v in audit500.shapes.items()]
+    jf500 = [_fit_time(f"main500 {k}", v, smi) for k, v in audit500.fits.items()]
     del audit500
     walls["join 500k"] = time.perf_counter() - t0
 
@@ -1844,12 +1982,15 @@ def main() -> int:
     # --- the lattice cell's path: the exact 512^3 table and the orbit step --------------
     t0 = time.perf_counter()
     cell_policy = dataclasses.replace(policy, exact_lut=True, resolve_symmetry=True)
-    js0 = JOIN_SCORE.launches
-    with _JoinAudit() as audit:  # Model.init's symmetry detection runs through the join
+    js0, jf0 = JOIN_SCORE.launches, JOIN_FIT.launches
+    with _JoinAudit(keep=True) as audit:  # Model.init's symmetry detection runs the join
         lat_api = api.Model(PointCloud.from_arrays(*lat, device=dev), disc,
                             cell_policy).init(sample)
     torch.cuda.synchronize()
-    audit.check("latticecell init", JOIN_SCORE.launches - js0, None, smi)
+    audit.check("latticecell init", JOIN_SCORE.launches - js0, None, smi,
+                JOIN_FIT.launches - jf0, None)
+    jf_phases = [_fit_time(f"latticecell init {k}", v, smi) for k, v in audit.fits.items()]
+    del audit
     orbit_lat = lat_api.compiled.orbit
     _log(f"[latticecell] api.Model.init with exact_lut and resolve_symmetry: "
          f"{time.perf_counter() - t0:.3f} s, table {tuple(lat_api.compiled.lut.shape)}, orbit "
@@ -1869,6 +2010,8 @@ def main() -> int:
                              f"{list(audit_lat.shapes)}")
     js_phases = [_join_time(f"latticecell {k}", v["args"], v["calls"], v["max_abs_err"], smi)
                  for k, v in audit_lat.shapes.items()] + js_phases
+    jf_phases = [_fit_time(f"latticecell {k}", v, smi)
+                 for k, v in audit_lat.fits.items()] + jf500 + jf_phases
     del scene_lat, lat_api, audit_lat
     walls["latticecell"] = time.perf_counter() - t0
 
@@ -1941,6 +2084,8 @@ def main() -> int:
               src + "coarse_linear_rank.cu", tpu + ":922", "main131lin", b4_phases),
         entry("JS", "join_score (the join's scoring pass, search.score.finish_find)",
               src + "join_score.cu", None, "latticecell", js_phases),
+        entry("JF", "join_fit (the join's pose fit, refine.icp._fit)",
+              src + "join_fit.cu", None, "latticecell", jf_phases),
     ]}
     print(smi, flush=True)
     print(json.dumps(line), flush=True)

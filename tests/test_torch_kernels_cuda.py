@@ -541,3 +541,272 @@ def test_fog_find_all_on_card_counts_one_join_launch_per_pass(card, monkeypatch)
     stats = driver.LAST_SEARCH_STATS
     assert stats["fine_rescore_full"] is True and matches
     assert stats["join_score_kernel_launches"] == len(calls) > 0
+
+
+# --- the join's pose fit (csrc/join_fit.cu) ---------------------------------------
+
+# the join's fits: the relaxed ICP's Kabsch; the polish's orientation-weighted
+# Kabsch, with the raw-edge weights on both sides of the 12-corr fallback; its
+# Gauss-Newton point-to-line steps (the fog route's floor) and point-to-plane
+FIT_MODES = {"relaxed": dict(), "orient": dict(orientation_weight=True, keep=True),
+             "edges": dict(edges_only=True, orientation_weight=True, keep=True),
+             "edges_few": dict(edges_only=True, orientation_weight=True, keep=True),
+             "p2l": dict(gauss_newton=True, edges_only=True, orientation_weight=True, keep=True),
+             "p2p": dict(gauss_newton=True, keep=True)}
+
+
+def _fit_case(box500k, lattice131k, layout, mode):
+    """(model, scene, tangent mask, poses, corrs) of one fit at a layout of
+    the join: fog500k's per-finalist subsets [4, 65536] and whole scan [4,
+    500k], the lattice's subsets [4, 65536] (exact table), symmetry
+    detection's model-as-scene [1, 19950].  The corrs are the step's own
+    scoring pass's (relaxed gate; the polish's exact lookup at the gate);
+    under edges_only the mask is the raw-edge one, or, for ``edges_few``, 11
+    of its points per scene batch."""
+    from triplet_match_tpu_torch.core.transforms import strict_fp32
+    from triplet_match_tpu_torch.search.score import finish_find
+
+    if layout.startswith("fog500k"):
+        model, scene, tm, consumed, ts = box500k
+        t = ts[:4]
+    elif layout == "lattice":
+        model, scene, tm, consumed, cand = lattice131k
+        t = cand.reshape(-1, 4, 4)[[0, 3, 4, 5]].contiguous()  # near, the truth's orbit
+    else:
+        model = lattice131k[0]
+        scene, tm = model.cloud, model.edge
+        consumed = torch.zeros(scene.capacity, dtype=torch.bool, device=tm.device)
+        t = torch.eye(4, device=tm.device)[None].clone()
+        t[0, :3, 3] = torch.tensor([0.002, -0.001, 0.0015])
+    if FIT_MODES[mode].get("edges_only"):
+        tm = torch.linalg.vector_norm(scene.tangent, dim=-1) > 0.7
+    if layout in ("fog500k", "lattice"):
+        scene, tm, consumed, _, _, _ = driver._candidate_subset(model, scene, tm, consumed, t,
+                                                                3.0, 65536, 1.0)
+        assert scene.xyz.shape[:2] == (t.shape[0], 65536)
+    relaxed = mode == "relaxed"
+    with strict_fp32():
+        corrs = finish_find(model, scene, tm, consumed, t, 6.0 if relaxed else 3.0,
+                            exact=not relaxed)
+    if mode == "edges_few":
+        tm = tm & (torch.cumsum(tm.to(torch.int64), -1) <= 11)
+    return model, scene, tm, t, corrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(FIT_MODES))
+@pytest.mark.parametrize("layout", ["fog500k", "fog500k_whole", "lattice", "symmetry"])
+def test_join_fit_kernel_within_the_float64_fit(box500k, lattice131k, layout, mode):
+    """csrc/join_fit.cu against the plain fit evaluated in float64 on the
+    same inputs: each pose no farther from it than the float32 plain fit is,
+    plus 1e-6 rad and 1e-6 x the scene's extent; two launches alike to the
+    bit."""
+    from triplet_match_tpu_torch.core.transforms import strict_fp32
+    from triplet_match_tpu_torch.refine import fit_check, icp
+
+    model, scene, tm, t, corrs = _fit_case(box500k, lattice131k, layout, mode)
+    kw = FIT_MODES[mode]
+    edges = (corrs.valid & tm).sum(-1)
+    if mode == "edges":
+        assert int(edges.min()) >= 12
+    if mode == "edges_few":
+        assert int(edges.max()) < 12
+    assert int(corrs.count.min()) >= 3 and int(corrs.count.max()) > 100
+    with strict_fp32():
+        before = icp.JOIN_FIT.launches
+        a = icp._fit(model, scene, tm, t, corrs, **kw)
+        b = icp._fit(model, scene, tm, t, corrs, **kw)
+        torch.cuda.synchronize()
+        assert icp.JOIN_FIT.launches == before + 2
+        over_t, over_r, _, _ = fit_check.fit_excess(model, scene, tm, t, corrs, a, **kw)
+    assert a.dtype == torch.float32 and a.shape == t.shape and torch.equal(a, b)
+    assert torch.equal(a[:, 3], torch.tensor([0.0, 0.0, 0.0, 1.0], device=a.device).expand(
+        a.shape[0], 4))
+    assert float(over_t.max()) <= 0.0 and float(over_r.max()) <= 0.0, (over_t, over_r)
+    assert float(fit_check.fit_gap(a, t)[1].min()) > 0.0  # the step moved every pose
+
+
+@pytest.mark.cuda
+def test_join_fit_kernel_degenerate_cases(box500k, lattice131k):
+    """No weight: the identity (as ``weighted_kabsch``); under ``keep``, a
+    pose whose step scored fewer than 3 corrs keeps its pose bit for bit."""
+    from triplet_match_tpu_torch.core.transforms import strict_fp32
+    from triplet_match_tpu_torch.refine import icp
+
+    model, scene, tm, t, corrs = _fit_case(box500k, lattice131k, "fog500k", "orient")
+    none = corrs._replace(valid=torch.zeros_like(corrs.valid))
+    few = corrs._replace(count=torch.tensor([2, 40, 0, 3], device=t.device))
+    with strict_fp32():
+        eye = icp._fit_cuda(model, scene, tm, t, none)
+        eye_gn = icp._fit_cuda(model, scene, tm, t, none._replace(count=few.count),
+                               gauss_newton=True, keep=True)
+        kept = icp._fit_cuda(model, scene, tm, t, few, orientation_weight=True, keep=True)
+        moved = icp._fit_cuda(model, scene, tm, t, corrs, orientation_weight=True)
+    assert torch.equal(eye, torch.eye(4, device=t.device).expand(4, 4, 4))
+    assert torch.equal(kept[[0, 2]], t[[0, 2]]) and torch.equal(eye_gn[[0, 2]], t[[0, 2]])
+    assert torch.equal(kept[[1, 3]], moved[[1, 3]])
+
+
+@pytest.mark.cuda
+def test_fog_find_all_on_card_counts_one_fit_launch_per_fit(card, monkeypatch):
+    """A fog-route search makes one join_fit launch per fit of its ICP and
+    polish and publishes their number as ``join_fit_kernel_launches``."""
+    from triplet_match_tpu_torch.refine import icp
+
+    dev, model, scene, t_gt = card
+    calls = []
+    launch = icp._fit_cuda
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return launch(*a, **kw)
+
+    monkeypatch.setattr(icp, "_fit_cuda", counted)
+    policy = dataclasses.replace(cfg.SearchPolicy(), num_first_samples=16, num_second_samples=8,
+                                 query_cap=8, score_neighbors=256, finalists=2, max_rounds=2,
+                                 fine_full_rescore_ratio=0.0)
+    matches = driver.find_all(model, scene, dist_thres=3.0, model_match_factor=0.5,
+                              sample_params=SAMPLE, policy=policy, max_icp_iterations=5, seed=13)
+    stats = driver.LAST_SEARCH_STATS
+    assert stats["fine_rescore_full"] is True and matches
+    assert stats["join_fit_kernel_launches"] == len(calls) > 0
+
+
+# the scene-sharded fits: each of the modes above, and ``edges_split``: the
+# raw-edge weights with 8 edge corrs a pose on each of two shards, so that
+# only the whole scene's count (16) passes the 12-corr test
+SHARD_MODES = dict(FIT_MODES, edges_split=FIT_MODES["edges"])
+SHARD_CASES = ([("fog500k", m) for m in SHARD_MODES]
+               + [("fog500k_whole", m) for m in ("relaxed", "edges_split", "p2l", "p2p")])
+SHARDS = 2
+
+
+def _shard(x, rank, n):
+    """Shard ``rank`` of SHARDS of a field over ``n`` points, along its points
+    (the last dim, or the one before it for [..., n, 3] vectors)."""
+    lo, hi = rank * n // SHARDS, (rank + 1) * n // SHARDS
+    vec = x.dim() > 1 and x.shape[-1] == 3 and x.shape[-2] == n
+    return (x[..., lo:hi, :] if vec else x[..., lo:hi]).contiguous()
+
+
+def _sharded_fit_rank(path):
+    """One gloo rank of ``test_join_fit_kernel_sharded``: every case's fit of
+    its shard of the scene (the cases as ``sharded_fits`` saved them at
+    ``path``), under a scene-sharded group of SHARDS ranks on card 0.
+    Returns every rank's (poses as an array, JOIN_FIT launches) by case."""
+    import torch.distributed as dist
+
+    from triplet_match_tpu_torch.core.transforms import strict_fp32
+    from triplet_match_tpu_torch.parallel.mesh import SP_AXIS, MeshAxis, make_mesh
+    from triplet_match_tpu_torch.refine import icp
+    from triplet_match_tpu_torch.search.score import DenseCorrs
+
+    dev = torch.device("cuda", 0)
+    rank = dist.get_rank()
+    group = MeshAxis(make_mesh(SHARDS, SP_AXIS), SP_AXIS)
+    saved = torch.load(path)
+    model = SimpleNamespace(cloud=PointCloud(*(v.to(dev) for v in saved["model"])))
+    out = {}
+    for key, (xyz, nrm, tan, valid, tm, t, midx, ok, score, count) in saved["cases"].items():
+        n = xyz.shape[-2]
+        sc = PointCloud(*(_shard(v, rank, n).to(dev) for v in (xyz, nrm, tan, valid)))
+        c = DenseCorrs(_shard(midx, rank, n).to(dev), _shard(ok, rank, n).to(dev),
+                       score.to(dev), count.to(dev))
+        before = icp.JOIN_FIT.launches
+        with strict_fp32():
+            got = icp._fit(model, sc, _shard(tm, rank, n).to(dev), t.to(dev), c, group=group,
+                           **SHARD_MODES[key.split("/")[1]])
+        out[key] = (got.cpu().numpy(), icp.JOIN_FIT.launches - before)
+    every = [None] * SHARDS
+    dist.all_gather_object(every, out)
+    return every
+
+
+@pytest.fixture(scope="module")
+def sharded_fits(box500k, lattice131k, tmp_path_factory):
+    """Every case of SHARD_CASES (fog500k's subsets [4, 65536] and whole scan
+    [4, 500k]) with its points in one fixed shuffled order, so that both
+    shards hold points of the box (the scan lists them first, the subsets
+    gather them first); the inputs whole on the card, and every rank's
+    sharded fit of them.  The ranks read the cases from a file (some 200 MB:
+    too much for a spawned process's arguments, which share tensors through
+    shared memory)."""
+    from triplet_match_tpu_torch.parallel import distributed as pdist
+    from triplet_match_tpu_torch.search.score import DenseCorrs
+
+    gen = torch.Generator().manual_seed(21)
+    perms, cases, moved, cpu = {}, {}, {}, {}
+
+    def shuffled(x, n):  # one copy of each field, in the layout's order
+        if n not in perms:
+            perms[n] = torch.randperm(n, generator=gen).to(x.device)
+        if id(x) not in moved:
+            vec = x.dim() > 1 and x.shape[-1] == 3 and x.shape[-2] == n
+            moved[id(x)] = (x, x[..., perms[n], :] if vec else x[..., perms[n]])
+        return moved[id(x)][1]
+
+    for layout, mode in SHARD_CASES:
+        model, scene, tm, t, corrs = _fit_case(box500k, lattice131k, layout,
+                                               "edges" if mode == "edges_split" else mode)
+        n = scene.xyz.shape[-2]
+        scene = PointCloud(*(shuffled(v, n) for v in (scene.xyz, scene.normal, scene.tangent,
+                                                       scene.valid)))
+        tm = shuffled(tm, n)
+        corrs = DenseCorrs(shuffled(corrs.model_idx, n), shuffled(corrs.valid, n),
+                           corrs.score, corrs.count)
+        if mode == "edges_split":  # 8 edge corrs of every pose on each shard
+            on = tm & corrs.valid.all(0) if tm.dim() == 1 else tm & corrs.valid
+            second = torch.arange(n, device=tm.device) >= n // SHARDS
+            first = torch.zeros_like(on)
+            for part in (~second, second):
+                sel = on & part
+                first |= sel & (torch.cumsum(sel.to(torch.int64), -1) <= 8)
+            tm = first
+        cases[(layout, mode)] = (model, scene, tm, t, corrs)
+
+    def host(x):  # one host copy of each card tensor
+        if id(x) not in cpu:
+            cpu[id(x)] = (x, x.cpu())
+        return cpu[id(x)][1]
+
+    model = cases[SHARD_CASES[0]][0]
+    path = tmp_path_factory.mktemp("sharded_fits") / "cases.pt"
+    torch.save({"model": tuple(host(v) for v in (model.cloud.xyz, model.cloud.normal,
+                                                 model.cloud.tangent, model.cloud.valid)),
+                "cases": {f"{k[0]}/{k[1]}": (host(sc.xyz), host(sc.normal), host(sc.tangent),
+                                             host(sc.valid), host(tm), host(t),
+                                             *(host(v) for v in c))
+                          for k, (_, sc, tm, t, c) in cases.items()}}, path)
+    every = pdist.run_local(_sharded_fit_rank, SHARDS, "gloo", str(path))
+    return cases, every
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,mode", SHARD_CASES)
+def test_join_fit_kernel_sharded(sharded_fits, layout, mode):
+    """Under a scene-sharded group (two gloo ranks on the card, each with
+    half of every pose's points) the fit is the kernel's, one call a fit on
+    each rank: the same bits on both ranks, and, against the plain fit of
+    the whole scene evaluated in float64, within the unsharded kernel's
+    bound.  ``edges_split`` holds the 12-corr fallback to the whole scene's
+    edge count."""
+    from triplet_match_tpu_torch.core.transforms import strict_fp32
+    from triplet_match_tpu_torch.refine import fit_check
+
+    cases, every = sharded_fits
+    model, scene, tm, t, corrs = cases[(layout, mode)]
+    (a, na), (b, nb) = (r[f"{layout}/{mode}"] for r in every)
+    assert na == nb == 1 and np.array_equal(a, b)
+    n = scene.xyz.shape[-2]
+    for r in range(SHARDS):  # every shard holds corrs of every pose
+        assert int(_shard(corrs.valid, r, n).sum(-1).min()) > 100
+    if mode == "edges_split":
+        edges = corrs.valid & tm
+        assert all(int(_shard(edges, r, n).sum(-1).max()) < 12 for r in range(SHARDS))
+        assert int(edges.sum(-1).min()) >= 12
+    got = torch.from_numpy(a).to(t.device)
+    with strict_fp32():
+        over_t, over_r, _, _ = fit_check.fit_excess(model, scene, tm, t, corrs, got,
+                                                    **SHARD_MODES[mode])
+    assert float(over_t.max()) <= 0.0 and float(over_r.max()) <= 0.0, (over_t, over_r)
+    assert float(fit_check.fit_gap(got, t)[1].min()) > 0.0

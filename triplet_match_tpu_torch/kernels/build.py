@@ -131,6 +131,22 @@ def load_join_score() -> ctypes.CDLL:
     return lib
 
 
+def load_join_fit() -> ctypes.CDLL:
+    """The join's pose-fit library (``csrc/join_fit.cu``), built on first use."""
+    # poses, n_poses, xyz, normal, tangent, tmask, n, batches, valid, midx,
+    # count, mxyz, mnormal, mtangent, gauss_newton, edges_only, orient, part,
+    # tot, out, stream
+    lib = _load("join_fit", [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _P, _P, _P, _P])
+    solve = lib.join_fit_solve  # poses, n_poses, count, gauss_newton, edges_only, tot, out, stream
+    solve.argtypes, solve.restype = [_P, _I, _P, _I, _I, _P, _P, _P], ctypes.c_int
+    part = lib.join_fit_part_doubles  # n, n_poses, gauss_newton, edges_only -> doubles of ``part``
+    part.argtypes, part.restype = [_I, _I, _I, _I], ctypes.c_longlong
+    tot = lib.join_fit_totals  # gauss_newton, edges_only -> doubles of one pose's totals
+    tot.argtypes, tot.restype = [_I, _I], ctypes.c_longlong
+    return lib
+
+
 class LaunchCounter:
     """Counts launches of one CUDA kernel (and nothing else)."""
 
@@ -142,11 +158,12 @@ class LaunchCounter:
 
 
 # every kernel source with its loader: the TPU kernels B1, B2, B3 and B4, in
-# order, then the exact voxel-LUT kernel and the join's scoring pass, which
-# replace no TPU kernel
+# order, then the exact voxel-LUT kernel, the join's scoring pass and its pose
+# fit, which replace no TPU kernel
 SOURCES = {"coarse_rank": load_coarse_rank, "exact_rank": load_exact_rank,
            "full_rank": load_full_rank, "coarse_linear_rank": load_coarse_linear_rank,
-           "nearest_grid": load_nearest_grid, "join_score": load_join_score}
+           "nearest_grid": load_nearest_grid, "join_score": load_join_score,
+           "join_fit": load_join_fit}
 
 
 def build_all(ptxas_info: bool = False) -> None:

@@ -61,7 +61,7 @@ from triplet_match_tpu_torch.parallel.mesh import (
     psum,
     sharded,
 )
-from triplet_match_tpu_torch.refine.icp import icp_refine, tight_polish
+from triplet_match_tpu_torch.refine.icp import JOIN_FIT, icp_refine, tight_polish
 from triplet_match_tpu_torch.search import score_kernel as sk
 from triplet_match_tpu_torch.search.sampling import (
     RoundDraws,
@@ -824,9 +824,11 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
     ``utils.timer.Profiler``) plus the launches of each ranking kernel in
     this search (on this rank): ``coarse_kernel_launches`` (B1),
     ``exact_kernel_launches`` (B2), ``full_kernel_launches`` (B3) and
-    ``coarse_linear_kernel_launches`` (B4), and of the join's scoring pass,
+    ``coarse_linear_kernel_launches`` (B4), of the join's scoring pass,
     ``join_score_kernel_launches`` (one per ``finish_find`` call on the
-    card, 0 on the CPU).
+    card, 0 on the CPU), and of its pose fit, ``join_fit_kernel_launches``
+    (one per ICP or polish fit on the card outside a sharded group, 0 on the
+    CPU).
     """
     from triplet_match_tpu_torch.utils.timer import Profiler
 
@@ -839,7 +841,8 @@ def find_all(model: CompiledModel, scene_cloud: cl.PointCloud, *, dist_thres: fl
     counters = {"coarse_kernel_launches": sk.COARSE_RANK, "exact_kernel_launches": sk.EXACT_RANK,
                 "full_kernel_launches": sk.FULL_RANK,
                 "coarse_linear_kernel_launches": sk.COARSE_LINEAR_RANK,
-                "join_score_kernel_launches": JOIN_SCORE}
+                "join_score_kernel_launches": JOIN_SCORE,
+                "join_fit_kernel_launches": JOIN_FIT}
     launches0 = {key: c.launches for key, c in counters.items()}
     profiler = Profiler()
     with strict_fp32():
@@ -990,7 +993,7 @@ def find_all_multi(models: list[CompiledModel], scene_cloud: cl.PointCloud, *,
     model's resolution and twice it.  Keyword arguments pass to ``find_all``.
 
     ``LAST_MULTI_SEARCH_STATS`` gets one dict per model: ``find_all``'s
-    ``LAST_SEARCH_STATS`` (the five ``*_kernel_launches`` included) plus
+    ``LAST_SEARCH_STATS`` (the six ``*_kernel_launches`` included) plus
     ``search_s`` and, with origins, ``raycast_s`` and ``cast_survivors`` (the
     cone cull's survivors per cast, origin by origin for each match).
     ``mesh`` goes to the scene preparation and to every model's search

@@ -142,16 +142,33 @@ class _JoinInputs(NamedTuple):
     consumed: torch.Tensor
 
 
+def scene_batches(kernel: str, xyz: torch.Tensor, ts: torch.Tensor) -> tuple[tuple, tuple]:
+    """(the poses' leading dims, the scene's) of a join kernel's call, poses
+    ``ts`` [..., 4, 4] over scene points ``xyz`` [..., N, 3]; raises unless
+    the scene's leading dims are none (one scene for every pose) or the
+    poses' trailing ones (per-pose sub-scenes, e.g. [F, C] under [F] poses)."""
+    lead, s_lead = tuple(ts.shape[:-2]), tuple(xyz.shape[:-2])
+    if len(s_lead) > len(lead) or lead[len(lead) - len(s_lead):] != s_lead:
+        raise ValueError(f"{kernel}: scene batch {s_lead} is not a suffix of the poses' {lead}")
+    return lead, s_lead
+
+
+def kernel_field(kernel: str, x: torch.Tensor, dtype, shape: tuple, device) -> torch.Tensor:
+    """``x`` as a join kernel reads it: on ``device`` (else raise), of
+    ``dtype``, broadcast to ``shape`` and contiguous."""
+    if x.device != device:
+        raise ValueError(f"{kernel}: a field on {x.device}, the poses on {device}")
+    x = x if x.dtype == dtype else x.to(dtype)
+    x = x if x.shape == shape else torch.broadcast_to(x, shape)
+    return x if x.is_contiguous() else x.contiguous()
+
+
 def _join_inputs(scene, tangent_mask, consumed, ts, dist_thres) -> _JoinInputs:
     """``finish_find``'s inputs, checked and made contiguous.  ``ts`` [..., 4,
     4]; the scene's fields are [..., N] (with [..., N, 3] vectors) whose
-    leading dims are none (one scene for every pose) or the poses' trailing
-    ones (per-pose sub-scenes, e.g. [F, C] under [F] poses)."""
-    lead = tuple(ts.shape[:-2])
+    leading dims are those ``scene_batches`` takes."""
+    lead, s_lead = scene_batches("join_score", scene.xyz, ts)
     n = scene.xyz.shape[-2]
-    s_lead = tuple(scene.xyz.shape[:-2])
-    if len(s_lead) > len(lead) or lead[len(lead) - len(s_lead):] != s_lead:
-        raise ValueError(f"join_score: scene batch {s_lead} is not a suffix of the poses' {lead}")
     if isinstance(dist_thres, torch.Tensor):
         dist = dist_thres.to(device=ts.device, dtype=torch.float32)
         dist_p, dist_f = torch.broadcast_to(dist, lead).reshape(-1).contiguous(), 0.0
@@ -159,12 +176,7 @@ def _join_inputs(scene, tangent_mask, consumed, ts, dist_thres) -> _JoinInputs:
         dist_p, dist_f = None, float(np.float32(dist_thres))
 
     def field(x, dtype, tail=()):
-        if x.device != ts.device:
-            raise ValueError(f"join_score: a scene field on {x.device}, the poses on {ts.device}")
-        x = x if x.dtype == dtype else x.to(dtype)
-        shape = s_lead + (n,) + tail
-        x = x if x.shape == shape else torch.broadcast_to(x, shape)
-        return x if x.is_contiguous() else x.contiguous()
+        return kernel_field("join_score", x, dtype, s_lead + (n,) + tail, ts.device)
 
     poses = ts if ts.dtype == torch.float32 else ts.float()
     return _JoinInputs(lead, math.prod(s_lead), poses.contiguous(), dist_p, dist_f,
